@@ -1,0 +1,204 @@
+"""PWCLO-Net: pyramid / warping / cost-volume LiDAR odometry network.
+
+Port of ``efficientlo_net_tpu/models/pwclo.py``, eval mode: a 4-level
+Siamese set-conv pyramid over the cylindrical range image, a coarse
+attentive cost volume regressing an initial pose, and three warp-refinement
+levels.  Full HDL-64 level shapes: 64x1800 -> l0 16x225 -> l1 8x113 -> l2
+4x57 -> l3 4x29.  Submodule names follow the JAX package's Flax names.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from ..ops import quaternion as Q
+from ..ops.projection import project_to_range_image
+from .layers import (
+    CostVolume,
+    DownConv,
+    FlowPredictor,
+    Head1x1,
+    UpConv,
+    softmax_valid,
+    valid_mask_from_xyz,
+)
+
+
+class PoseHead(nn.Module):
+    """conv1d(head_dim) -> dropout (identity in eval) -> {q head
+    (normalized), t head}."""
+
+    def __init__(self, in_features: int, head_dim: int):
+        super().__init__()
+        self.big = Head1x1(in_features, head_dim)
+        self.q_head = Head1x1(head_dim, 4)
+        self.t_head = Head1x1(head_dim, 3)
+
+    def forward(self, feat_b1c):
+        x = self.big(feat_b1c)
+        q = Q.qnormalize(self.q_head(x))
+        t = self.t_head(x)
+        return q[:, 0, :], t[:, 0, :]  # (B, 4), (B, 3)
+
+
+class PWCLONet(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        shapes = cfg.level_shapes
+        strides = list(zip(cfg.stride_h, cfg.stride_w))
+        feat_c = [m[-1] for m in cfg.down_mlps]  # l0..l3 feature channels
+        cv_c = cfg.cv_mlp1[-1]
+        pred_c = cfg.predictor_mlp[-1]
+
+        # Siamese pyramid: one module per level, applied to both frames.
+        in_c = [3] + feat_c[:3]  # level 0 gets zero features of width 3
+        self.down_strides = [strides[i + 2] for i in range(4)]
+        self.down_layers = []
+        for i in range(4):
+            layer = DownConv(in_c[i], cfg.down_kernels[i], cfg.down_K[i],
+                             cfg.down_conv_dis[i], cfg.down_mlps[i], shapes[i + 2])
+            self.add_module(f"down_l{i}", layer)
+            self.down_layers.append(layer)
+
+        # Coarse correlation at l2 + pooling down_conv to l3.
+        self.cv_origin = CostVolume(
+            feat_c[2], feat_c[2], cfg.cv_kernel1, cfg.cv_kernel2[3], cfg.cv_nsample,
+            cfg.cv_nsample_q[3], cfg.cost_volume_dis[2], cfg.cv_mlp1, cfg.cv_mlp2,
+        )
+        self.cv_down_l3 = DownConv(cv_c, cfg.down_kernels[3], cfg.down_K[3],
+                                   cfg.down_conv_dis[3], cfg.cv_down_mlp, shapes[5])
+        l3_pred_c = cfg.cv_down_mlp[-1]
+        self.l3_w_predictor = FlowPredictor(feat_c[3] + l3_pred_c, cfg.predictor_mlp)
+        self.l3_head = PoseHead(l3_pred_c, cfg.head_dim)
+
+        # Warp-refinement levels l2, l1, l0; up_conv strides map level i to
+        # level i+1's grid.
+        self.refine = []
+        for i in range(3):
+            coarse_w = pred_c
+            coarse_pred = l3_pred_c if i == 2 else pred_c
+            parts = {
+                "cv": CostVolume(feat_c[i], feat_c[i], cfg.cv_kernel1, cfg.cv_kernel2[i],
+                                 cfg.cv_nsample, cfg.cv_nsample_q[i], cfg.cost_volume_dis[i],
+                                 cfg.cv_mlp1, cfg.cv_mlp2),
+                "up_w": UpConv(feat_c[i], coarse_w, cfg.up_kernel, cfg.up_nsample,
+                               cfg.up_conv_dis[i], strides[i + 3], cfg.up_mlp1, cfg.up_mlp2),
+                "up_feat": UpConv(feat_c[i], coarse_pred, cfg.up_kernel, cfg.up_nsample,
+                                  cfg.up_conv_dis[i], strides[i + 3], cfg.up_mlp1,
+                                  cfg.up_mlp2),
+                "pred_feat": FlowPredictor(feat_c[i] + cfg.up_mlp2[-1] + cv_c,
+                                           cfg.predictor_mlp),
+                "pred_w": FlowPredictor(feat_c[i] + cfg.up_mlp2[-1] + cv_c,
+                                        cfg.predictor_mlp),
+                "head": PoseHead(pred_c, cfg.head_dim),
+            }
+            for name, module in parts.items():
+                self.add_module(f"{name}_l{i}", module)
+            self.refine.append(parts)
+
+    def _pyramid(self, xyz_proj):
+        """Four down_convs for one (batch of) frame(s); returns per-level
+        (xyz_proj, feat, feat_proj)."""
+        shapes = self.cfg.level_shapes
+        feats = []
+        cur_xyz = xyz_proj
+        cur_feat_proj = torch.zeros_like(xyz_proj)  # zero input features
+        for i, layer in enumerate(self.down_layers):
+            feat, new_xyz = layer(cur_xyz, cur_feat_proj, self.down_strides[i])
+            h, w = shapes[i + 2]
+            feat_proj = feat.reshape(feat.shape[0], h, w, feat.shape[-1])
+            feats.append((new_xyz, feat, feat_proj))
+            cur_xyz, cur_feat_proj = new_xyz, feat_proj
+        return feats
+
+    def _warp(self, xyz_proj, q, t):
+        """Rigidly move level points by the accumulated pose, masking invalid
+        points."""
+        b, h, w, _ = xyz_proj.shape
+        xyz = xyz_proj.reshape(b, h * w, 3)
+        mask = valid_mask_from_xyz(xyz)[..., None]
+        return (Q.qrotate(q, xyz) + t[:, None, :]) * mask
+
+    def forward(self, proj_f1: torch.Tensor, proj_f2: torch.Tensor) -> Dict[str, Any]:
+        """Both frames' range images (B, H, W, 3) -> {"q": [l0..l3], "t": ...}.
+        The Siamese tower runs once on the merged 2B batch (eval-mode batch
+        norm and every pyramid op are independent across the batch)."""
+        b = proj_f1.shape[0]
+        fb = self._pyramid(torch.cat([proj_f1, proj_f2], dim=0))
+        f1 = [tuple(t[:b] for t in lvl) for lvl in fb]
+        f2 = [tuple(t[b:] for t in lvl) for lvl in fb]
+        return self.forward_from_pyramids(f1, f2)
+
+    def forward_from_pyramids(self, f1, f2) -> Dict[str, Any]:
+        """Correlation + warp-refinement on precomputed feature pyramids
+        (a stream caches each frame's pyramid and pairs it with the next)."""
+        cfg = self.cfg
+        shapes = cfg.level_shapes
+        b = f1[0][0].shape[0]
+
+        (l0_xyz1, l0_feat1, _) = f1[0]
+        (l1_xyz1, l1_feat1, _) = f1[1]
+        (l2_xyz1, l2_feat1, l2_fp1) = f1[2]
+        (l3_xyz1, l3_feat1, _) = f1[3]
+        (l0_xyz2, _, l0_fp2) = f2[0]
+        (l1_xyz2, _, l1_fp2) = f2[1]
+        (l2_xyz2, _, l2_fp2) = f2[2]
+
+        # ---- coarse level l3 -------------------------------------------
+        cv = self.cv_origin(l2_xyz1, l2_xyz2, l2_fp1, l2_fp2)
+        h2, w2 = shapes[4]
+        cv_proj = cv.reshape(b, h2, w2, cv.shape[-1])
+        l3_predict, _ = self.cv_down_l3(l2_xyz1, cv_proj, self.down_strides[3])
+
+        h3, w3 = shapes[5]
+        l3_predict_proj = l3_predict.reshape(b, h3, w3, -1)
+        l3_w = self.l3_w_predictor([l3_feat1, l3_predict])
+        l3_w_proj = l3_w.reshape(b, h3, w3, -1)
+
+        l3_mask = valid_mask_from_xyz(l3_xyz1.reshape(b, h3 * w3, 3))
+        l3_q, l3_t = self.l3_head(softmax_valid(l3_predict, l3_w, l3_mask))
+
+        # ---- warp-refinement l2 -> l1 -> l0 ----------------------------
+        level_data = [
+            (2, l2_xyz1, l2_feat1, l2_fp2, l2_xyz2, shapes[4]),
+            (1, l1_xyz1, l1_feat1, l1_fp2, l1_xyz2, shapes[3]),
+            (0, l0_xyz1, l0_feat1, l0_fp2, l0_xyz2, shapes[2]),
+        ]
+        q_coarse, t_coarse = l3_q, l3_t
+        coarser_xyz_proj = l3_xyz1  # source grid for the up_convs
+        coarser_w_proj = l3_w_proj
+        coarser_predict_proj = l3_predict_proj
+        qs, ts = [None, None, None, l3_q], [None, None, None, l3_t]
+
+        for li, xyz1_proj, feat1, fp2, xyz2_proj, (hl, wl) in level_data:
+            parts = self.refine[li]
+            warped = self._warp(xyz1_proj, q_coarse, t_coarse)  # (B, N, 3)
+            # warped points derive from the 35 m-cropped input: packed is safe
+            xyz_warp_proj, feat_warp_proj = project_to_range_image(
+                warped, feat1, hl, wl, cfg.sensor
+            )
+            feat_warp = feat_warp_proj.reshape(b, hl * wl, -1)
+            mask_warp = valid_mask_from_xyz(xyz_warp_proj.reshape(b, hl * wl, 3))
+
+            cv_l = parts["cv"](xyz_warp_proj, xyz2_proj, feat_warp_proj, fp2)
+            up_w = parts["up_w"](xyz_warp_proj, coarser_xyz_proj, feat_warp, coarser_w_proj)
+            up_feat = parts["up_feat"](xyz_warp_proj, coarser_xyz_proj, feat_warp,
+                                       coarser_predict_proj)
+            predict = parts["pred_feat"]([feat_warp, up_feat, cv_l])
+            w = parts["pred_w"]([feat_warp, up_w, cv_l])
+
+            q_det, t_det = parts["head"](softmax_valid(predict, w, mask_warp))
+            q_new, t_new = Q.compose_pose(q_det, t_det, q_coarse, t_coarse)
+
+            qs[li], ts[li] = q_new, t_new
+            q_coarse, t_coarse = q_new, t_new
+            coarser_xyz_proj = xyz_warp_proj
+            coarser_w_proj = w.reshape(b, hl, wl, -1)
+            coarser_predict_proj = predict.reshape(b, hl, wl, -1)
+
+        return {"q": [Q.qnormalize(q) for q in qs], "t": ts}  # [l0, l1, l2, l3]

@@ -1,0 +1,164 @@
+"""CUDA windowed neighbour select: wrappers, binding and launch counts.
+
+The hand-written Hopper counterparts of the two Pallas TPU kernels in
+``efficientlo_net_tpu/ops/pallas_select.py``; the sources are in
+``csrc/window_select.cu``:
+
+* ``window_select``    replaces ``_kernel`` (via ``pallas_window_select``);
+* ``select_and_group`` replaces ``_kernel`` + ``_emit_kernel`` (via
+  ``pallas_select_and_group``): one pass selects and copies the values.
+
+Both take CUDA tensors only and launch on the current stream; the plain
+PyTorch versions of the same functions are ``neighbors.select_neighbors_plain``
+and ``neighbors.select_and_group_plain``.  ``launches`` counts the launches
+of each kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import cuda_build
+from .neighbors import FIRST_K, KNN
+
+SOURCE = "window_select.cu"
+
+#: kernel launches since the last ``reset_launches()``
+launches = {"window_select": 0, "select_and_group": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_bound = None
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    global _bound
+    if _bound is None:
+        lib = cuda_build.load(SOURCE)
+        lib.elo_max_k.argtypes = []
+        lib.elo_max_k.restype = _I
+        lib.elo_window_select.argtypes = [_P, _P, _P] + [_I] * 12 + [_F, _I, _P, _P, _P]
+        lib.elo_window_select.restype = _I
+        lib.elo_select_and_group.argtypes = [_P, _P, _P] + [_I] * 9 + [_F, _I, _P, _P, _P, _P]
+        lib.elo_select_and_group.restype = _I
+        _bound = lib
+    return _bound
+
+
+def _check_grid(x: torch.Tensor, name: str, channels: Optional[int] = None) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if x.dim() != 4 or (channels is not None and x.shape[-1] != channels):
+        raise ValueError(f"{name} must be (B, H, W, {channels or 'C'}), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _scan_order(perm, mode: str, t: int, device) -> Optional[torch.Tensor]:
+    """int32 scan order for FIRST_K with a permutation; KNN ignores it."""
+    if perm is None or mode == KNN:
+        return None
+    perm = torch.as_tensor(perm, dtype=torch.int32, device=device).contiguous()
+    if perm.shape != (t,):
+        raise ValueError(f"perm must have shape ({t},), got {tuple(perm.shape)}")
+    return perm
+
+
+def _common(kernel_size, k, mode, perm, device):
+    kh, kw = (int(v) for v in kernel_size)
+    if mode not in (FIRST_K, KNN):
+        raise ValueError(f"unknown mode {mode!r}")
+    max_k = _lib().elo_max_k()
+    if not 1 <= k <= max_k:
+        raise ValueError(f"k must be in [1, {max_k}], got {k}")
+    order = _scan_order(perm, mode, kh * kw, device)
+    return kh, kw, order
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+def window_select(
+    xyz1: torch.Tensor,
+    xyz2: torch.Tensor,
+    kernel_size: Tuple[int, int],
+    k: int,
+    distance: float,
+    center_stride: Tuple[int, int] = (1, 1),
+    source_stride: Tuple[int, int] = (1, 1),
+    mode: str = KNN,
+    perm=None,
+):
+    """Same contract as ``neighbors.select_neighbors_plain``: returns
+    (idx (B, N, K) int32 flat into H2*W2, 0 where masked; mask (B, N, K, 1))."""
+    _check_grid(xyz1, "xyz1", 3)
+    _check_grid(xyz2, "xyz2", 3)
+    if xyz2.shape[0] != xyz1.shape[0] or xyz2.device != xyz1.device:
+        raise ValueError("xyz1 and xyz2 must share batch size and device")
+    kh, kw, order = _common(kernel_size, k, mode, perm, xyz1.device)
+    b, h1, w1, _ = xyz1.shape
+    _, h2, w2, _ = xyz2.shape
+    csh, csw = (int(v) for v in center_stride)
+    sh, sw = (int(v) for v in source_stride)
+    n = -(-h1 // csh) * -(-w1 // csw)
+    idx = torch.empty((b, n, k), dtype=torch.int32, device=xyz1.device)
+    mask = torch.empty((b, n, k, 1), dtype=torch.float32, device=xyz1.device)
+    err = _lib().elo_window_select(
+        xyz1.data_ptr(), xyz2.data_ptr(), None if order is None else order.data_ptr(),
+        b, h1, w1, h2, w2, kh, kw, csh, csw, sh, sw, k,
+        float(distance) * float(distance), int(mode == KNN),
+        idx.data_ptr(), mask.data_ptr(), torch.cuda.current_stream(xyz1.device).cuda_stream,
+    )
+    _raise_on(err, "window_select")
+    launches["window_select"] += 1
+    return idx, mask
+
+
+def select_and_group(
+    xyz: torch.Tensor,
+    feats: torch.Tensor,
+    kernel_size: Tuple[int, int],
+    k: int,
+    distance: float,
+    center_stride: Tuple[int, int] = (1, 1),
+    mode: str = FIRST_K,
+    perm=None,
+):
+    """Same contract as ``neighbors.select_and_group_plain``: returns
+    (grouped_xyz (B,N,K,3), grouped_feat (B,N,K,C), mask (B,N,K,1)), zero in
+    masked slots.  The values carry no gradient."""
+    _check_grid(xyz, "xyz", 3)
+    _check_grid(feats, "feats")
+    if feats.shape[:3] != xyz.shape[:3] or feats.device != xyz.device:
+        raise ValueError("feats must share (B, H, W) and device with xyz")
+    kh, kw, order = _common(kernel_size, k, mode, perm, xyz.device)
+    b, h, w, _ = xyz.shape
+    c = feats.shape[-1]
+    csh, csw = (int(v) for v in center_stride)
+    n = -(-h // csh) * -(-w // csw)
+    gxyz = torch.empty((b, n, k, 3), dtype=torch.float32, device=xyz.device)
+    gfeat = torch.empty((b, n, k, c), dtype=torch.float32, device=xyz.device)
+    mask = torch.empty((b, n, k, 1), dtype=torch.float32, device=xyz.device)
+    err = _lib().elo_select_and_group(
+        xyz.data_ptr(), feats.data_ptr(), None if order is None else order.data_ptr(),
+        b, h, w, c, kh, kw, csh, csw, k,
+        float(distance) * float(distance), int(mode == KNN),
+        gxyz.data_ptr(), gfeat.data_ptr(), mask.data_ptr(),
+        torch.cuda.current_stream(xyz.device).cuda_stream,
+    )
+    _raise_on(err, "select_and_group")
+    launches["select_and_group"] += 1
+    return gxyz, gfeat, mask
