@@ -17,8 +17,9 @@ line:
    the kernel and through its plain PyTorch version: K sets and masks must be
    equal exactly, and each centre's grouped (xyz, feature) rows exactly, as
    multisets; plus one FIRST_K case with a random scan permutation per
-   kernel.  Each call site is timed (CUDA events, median; and the host's
-   time to issue the calls) beside its bound;
+   kernel.  Each call site is timed beside its bound: back-to-back calls
+   (CUDA events, median; and the host's time to make the calls), and the
+   kernel alone (the replay of a CUDA graph that captured the calls);
 4. stream: ~10 scans pushed through ``OdometryStream(device="cuda")``; every
    push must launch ``window_select`` 14 times and ``select_and_group`` 5
    times; poses must be finite with unit quaternions and match the same
@@ -104,6 +105,35 @@ def time_ms(fn, reps=20, repeats=5):
         end.synchronize()
         dev.append(start.elapsed_time(end) / reps)
     return statistics.median(dev), statistics.median(host)
+
+
+def graph_ms(fn, reps=20, repeats=5):
+    """Device ms of one call with no host in the way: a CUDA graph captures
+    ``reps`` calls, and the median over ``repeats`` replays of the replay's
+    CUDA-event time is divided by ``reps``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
 
 
 @contextlib.contextmanager
@@ -254,21 +284,25 @@ def kernel_phase(ws, nbr, stream, scans):
     for site, args in zip(SELECT_SITES, calls["window_select"]):
         idx, mask, same = check_select_site(ws, nbr, args)
         ms, host_ms = time_ms(lambda: ws.window_select(*args))
+        device_ms = graph_ms(lambda: ws.window_select(*args))
         plain_ms, _ = time_ms(lambda: nbr.select_neighbors_plain(*args))
         b_ms, b_by = bound(nbytes(args[0], args[1], idx, mask),
                            FLOPS_PER_CANDIDATE * examined(nbr, args, group=False))
         sites["window_select"].append(dict(
-            site=site, **describe(args, False), ms=ms, host_ms=host_ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0, same_order=same))
+            site=site, **describe(args, False), ms=ms, host_ms=host_ms, device_ms=device_ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+            same_order=same))
     for site, args in zip(GROUP_SITES, calls["select_and_group"]):
         outs, err, same = check_group_site(ws, nbr, args)
         ms, host_ms = time_ms(lambda: ws.select_and_group(*args))
+        device_ms = graph_ms(lambda: ws.select_and_group(*args))
         plain_ms, _ = time_ms(lambda: nbr.select_and_group_plain(*args))
         b_ms, b_by = bound(nbytes(args[0], args[1], *outs),
                            FLOPS_PER_CANDIDATE * examined(nbr, args, group=True))
         sites["select_and_group"].append(dict(
-            site=site, **describe(args, True), ms=ms, host_ms=host_ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, same_order=same))
+            site=site, **describe(args, True), ms=ms, host_ms=host_ms, device_ms=device_ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            same_order=same))
     for name, rows in sites.items():
         for row in rows:
             emit({"phase": "kernel_site", "kernel": name, **row})
@@ -396,7 +430,8 @@ def kernels_line(sites, launches, card):
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
             "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "ms": sum(r["ms"] for r in rows), "device_ms": sum(r["device_ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": t_bytes + t_ops,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "per": "push, summed over its call sites",

@@ -32,7 +32,7 @@ launches = {"window_select": 0, "select_and_group": 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_bound = None
+_bound = None  # (library, the largest K its kernels take), bound once
 
 
 def reset_launches() -> None:
@@ -40,7 +40,7 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
+def _lib() -> Tuple[ctypes.CDLL, int]:
     global _bound
     if _bound is None:
         lib = cuda_build.load(SOURCE)
@@ -50,7 +50,7 @@ def _lib() -> ctypes.CDLL:
         lib.elo_window_select.restype = _I
         lib.elo_select_and_group.argtypes = [_P, _P, _P] + [_I] * 9 + [_F, _I, _P, _P, _P, _P]
         lib.elo_select_and_group.restype = _I
-        _bound = lib
+        _bound = lib, lib.elo_max_k()
     return _bound
 
 
@@ -79,11 +79,11 @@ def _common(kernel_size, k, mode, perm, device):
     kh, kw = (int(v) for v in kernel_size)
     if mode not in (FIRST_K, KNN):
         raise ValueError(f"unknown mode {mode!r}")
-    max_k = _lib().elo_max_k()
+    lib, max_k = _lib()
     if not 1 <= k <= max_k:
         raise ValueError(f"k must be in [1, {max_k}], got {k}")
     order = _scan_order(perm, mode, kh * kw, device)
-    return kh, kw, order
+    return lib, kh, kw, order
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -108,7 +108,7 @@ def window_select(
     _check_grid(xyz2, "xyz2", 3)
     if xyz2.shape[0] != xyz1.shape[0] or xyz2.device != xyz1.device:
         raise ValueError("xyz1 and xyz2 must share batch size and device")
-    kh, kw, order = _common(kernel_size, k, mode, perm, xyz1.device)
+    lib, kh, kw, order = _common(kernel_size, k, mode, perm, xyz1.device)
     b, h1, w1, _ = xyz1.shape
     _, h2, w2, _ = xyz2.shape
     csh, csw = (int(v) for v in center_stride)
@@ -116,7 +116,7 @@ def window_select(
     n = -(-h1 // csh) * -(-w1 // csw)
     idx = torch.empty((b, n, k), dtype=torch.int32, device=xyz1.device)
     mask = torch.empty((b, n, k, 1), dtype=torch.float32, device=xyz1.device)
-    err = _lib().elo_window_select(
+    err = lib.elo_window_select(
         xyz1.data_ptr(), xyz2.data_ptr(), None if order is None else order.data_ptr(),
         b, h1, w1, h2, w2, kh, kw, csh, csw, sh, sw, k,
         float(distance) * float(distance), int(mode == KNN),
@@ -144,7 +144,7 @@ def select_and_group(
     _check_grid(feats, "feats")
     if feats.shape[:3] != xyz.shape[:3] or feats.device != xyz.device:
         raise ValueError("feats must share (B, H, W) and device with xyz")
-    kh, kw, order = _common(kernel_size, k, mode, perm, xyz.device)
+    lib, kh, kw, order = _common(kernel_size, k, mode, perm, xyz.device)
     b, h, w, _ = xyz.shape
     c = feats.shape[-1]
     csh, csw = (int(v) for v in center_stride)
@@ -152,7 +152,7 @@ def select_and_group(
     gxyz = torch.empty((b, n, k, 3), dtype=torch.float32, device=xyz.device)
     gfeat = torch.empty((b, n, k, c), dtype=torch.float32, device=xyz.device)
     mask = torch.empty((b, n, k, 1), dtype=torch.float32, device=xyz.device)
-    err = _lib().elo_select_and_group(
+    err = lib.elo_select_and_group(
         xyz.data_ptr(), feats.data_ptr(), None if order is None else order.data_ptr(),
         b, h, w, c, kh, kw, csh, csw, k,
         float(distance) * float(distance), int(mode == KNN),

@@ -2,7 +2,8 @@
 
 Each kernel against its plain PyTorch version on the same CUDA tensors, over
 the select cases of the CPU tests (centre and source strides, uneven
-strides, a window wider than the grid, FIRST_K with and without a scan
+strides, a window wider than the grid, windows of more than 32 slots, which
+the kernels scan in rounds of 32, FIRST_K with and without a scan
 permutation, KNN with ties): masks and indices must be equal exactly, in the
 same slot order, and the fused kernel's grouped values too.  The kernels
 have no CPU mode, so without a card every test skips.  No JAX import: run
@@ -20,7 +21,8 @@ from efficientlo_net_torch.ops import window_select as ws
 # bare names: pytest puts tests/ on sys.path, and a machine may have an
 # unrelated "tests" package installed that would shadow tests.<module>
 from oracles import oracle_window_select
-from torch_cases import MODES, SELECT_CASES, make_grids, select_inputs, sets_equal
+from torch_cases import (GROUP_CASES, MODES, SELECT_CASES, group_inputs, make_grids,
+                         select_inputs, sets_equal)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,7 +67,8 @@ def test_window_select_matches_plain_and_oracle(dev, case, mode, with_perm):
 @pytest.mark.parametrize("mode", ["first_k", "knn"])
 def test_window_select_ties_and_max_k(dev, mode):
     """Integer coordinates make many equal distances (KNN keeps the lowest
-    window slot); K = 32 over a 9x15 window is the widest the kernel takes."""
+    window slot, also across the kernel's rounds of 32 slots: the 9x15
+    window takes five); K = 32 is the widest the kernel takes."""
     rng = np.random.default_rng(5)
     g = rng.integers(-3, 4, (2, 12, 20, 3)).astype(np.float32)
     x = _cuda(g, dev)
@@ -88,6 +91,18 @@ def test_select_and_group_matches_plain(dev, stride, mode, with_perm):
     want = nbr.select_and_group_plain(*args)
     for a, b in zip(got, want):
         assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_select_and_group_cases_match_plain(dev, case):
+    """One feature channel; 64 channels with K = 32; the fused kernel in KNN."""
+    xyz, feats, ks, k, dist, cs, mode = group_inputs(case)
+    args = (_cuda(xyz, dev), _cuda(feats, dev), ks, k, dist, cs, mode, None)
+    got = _launched("select_and_group", lambda: nbr.select_and_group(*args))
+    want = nbr.select_and_group_plain(*args)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+    assert want[2].sum() > 0
 
 
 def test_wrappers_refuse_bad_input(dev):

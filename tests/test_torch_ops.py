@@ -30,8 +30,8 @@ from efficientlo_net_tpu.ops.pallas_select import pallas_select_and_group, palla
 from efficientlo_net_tpu.ops.projection import project_to_range_image as j_project
 from tests.oracles import oracle_window_select
 from tests.test_model import synthetic_scan
-from tests.torch_cases import (MODES, SELECT_CASES, make_grids, rows_equal_as_multisets,
-                               select_inputs, sets_equal)
+from tests.torch_cases import (GROUP_CASES, MODES, SELECT_CASES, group_inputs, make_grids,
+                               rows_equal_as_multisets, select_inputs, sets_equal)
 from tests.torch_parity import t
 
 
@@ -166,6 +166,19 @@ def test_select_and_group_plain_matches_jax(mode, with_perm):
                                      center_stride=(2, 4), mode=mode, perm=jperm,
                                      interpret=True)
     got = np.concatenate([gx.numpy(), gf.numpy()], -1)
+    for jx, jf, jm in (fast, pallas):
+        np.testing.assert_array_equal(gm.numpy(), np.asarray(jm))
+        rows_equal_as_multisets(got, np.concatenate([np.asarray(jx), np.asarray(jf)], -1))
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_select_and_group_cases_plain_match_jax(case):
+    xyz, feats, ks, k, dist, cs, mode = group_inputs(case)
+    gx, gf, gm = TN.select_and_group_plain(t(xyz), t(feats), ks, k, dist, cs, mode)
+    got = np.concatenate([gx.numpy(), gf.numpy()], -1)
+    jargs = (jnp.asarray(xyz), jnp.asarray(feats), ks, k, dist)
+    fast = JN.select_and_group(*jargs, center_stride=cs, mode=mode)
+    pallas = pallas_select_and_group(*jargs, center_stride=cs, mode=mode, interpret=True)
     for jx, jf, jm in (fast, pallas):
         np.testing.assert_array_equal(gm.numpy(), np.asarray(jm))
         rows_equal_as_multisets(got, np.concatenate([np.asarray(jx), np.asarray(jf)], -1))

@@ -200,7 +200,6 @@ def test_artifact_written_by_jax_drives_port_like_jax(tmp_path):
     _artifact_parity(path, cfg, t_tiny())
 
 
-@pytest.mark.slow
 def test_full_config_50ep_artifact_matches_jax():
     """Full HDL-64 width (64x1800, 150k points) with the 50-epoch weights."""
     _artifact_parity(ARTIFACT, JConfig(), TConfig())
