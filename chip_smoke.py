@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``efficientlo_net_torch/ops/csrc`` and drives
-the port's main path, eval-mode streaming odometry at the full HDL-64 width
-(64x1800 range images of 150k-point scans) with the 50-epoch weights in
-``pretrained/synthetic_drive_50ep.msgpack``.  Phases, each printing one JSON
-line:
+the port's two main paths at the full HDL-64 width (64x1800 range images of
+150k-point scans), from the 50-epoch weights in
+``pretrained/synthetic_drive_50ep.msgpack``: eval-mode streaming odometry,
+and the train step at ``TrainConfig().batch_size`` = 8.  Phases, each
+printing JSON lines:
 
 1. device: the card (and its ``nvidia-smi`` name and power limit); TF32 is
    switched off for matmuls and convolutions, so float32 stays float32;
@@ -25,7 +26,22 @@ line:
    times; poses must be finite with unit quaternions and match the same
    stream run through the plain select versions on the card; ms per push,
    and per stage (projection, tower, correlation + refinement);
-5. the ``kernels`` line, then the card line, then the result line.
+5. train kernels: the 23 ``window_select`` calls of one train step (8 in
+   the two towers, 3 at the coarse level, 4 at each refinement level; 19
+   first-K with a fresh random scan order, 4 KNN) replayed through the
+   kernel and the plain version: masks and indices equal, in the same slot
+   order; each site timed as in phase 3;
+6. train: ``make_train_step`` on ``create_train_state(load_model(...))``,
+   2 warm-up steps, then 10 timed steps on one fixed B=8 batch; every step
+   must launch ``window_select`` 23 times and ``select_and_group`` never,
+   with finite losses, gradients and parameters, and ``w_x``/``w_q`` must
+   move; ms per step (CUDA events), samples/s, stage ms (inputs, forward,
+   backward, optimizer), peak device memory, the losses of every step; then
+   one step through the kernel and one through the plain selects, from the
+   same state and generator seed: the losses, every gradient and the new
+   batch statistics must agree (``TRAIN_*`` tolerances below);
+7. the ``kernels`` line (each kernel's launches, times and bound, per path
+   and summed), then the card line, then the result line.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 check fails.
@@ -61,6 +77,26 @@ GROUP_SITES = ["down_l0", "down_l1", "down_l2", "down_l3", "cv_down_l3"]
 # (models/pwclo.py, forward_from_pyramids) puts in another pixel after such an
 # ulp-level pose difference: that moves l0 by more and fails the check.
 STREAM_ATOL = 1e-5
+# Train path.  Sites in call order (models/pwclo.py): the tower of frame 1,
+# then of frame 2, the coarse level, then the refinement levels as above.
+TRAIN_SELECT_SITES = [f"down_l{i}.frame{f}" for f in (1, 2) for i in range(4)] + [
+    "cv_origin.knn", "cv_origin.self", "cv_down_l3"] + SELECT_SITES[2:]
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 10
+# Kernel step against plain-select step.  Both select the same neighbours in
+# the same slot order, so their forward passes run the same arithmetic: the
+# losses and the new batch statistics should agree bit for bit (atol 1e-5
+# covers a library reduction that is not reproducible from run to run).  The
+# gathers' backward adds with atomics in a run-dependent order, so a
+# gradient is held to TRAIN_GRAD_REL of the larger of its tensor's largest
+# entry and TRAIN_GRAD_FLOOR of the largest gradient of all (the floor is
+# for gradients that are zero but for rounding: the biases of dense layers
+# that feed a batch norm).  A point that the in-network re-projection puts
+# in another pixel changes a loss by far more, and fails the check.
+TRAIN_LOSS_ATOL = 1e-5
+TRAIN_STATS_TOL = dict(rtol=1e-5, atol=1e-5)
+TRAIN_GRAD_REL = 1e-4
+TRAIN_GRAD_FLOOR = 1e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -138,13 +174,25 @@ def graph_ms(fn, reps=20, repeats=5):
 
 @contextlib.contextmanager
 def recording(ws):
-    """Record the arguments of every kernel call made inside the block."""
+    """Record the arguments of every kernel call made inside the block.  Each
+    tensor is copied; arguments that are one buffer (a self-select's centres
+    and source) stay one copy."""
     calls = {"window_select": [], "select_and_group": []}
     originals = {name: getattr(ws, name) for name in calls}
 
     def wrap(name):
         def fn(*args):
-            calls[name].append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+            copies = {}
+
+            def keep(a):
+                if not hasattr(a, "clone"):
+                    return a
+                key = (a.data_ptr(), a.shape, a.stride(), a.dtype)
+                if key not in copies:
+                    copies[key] = a.detach().clone()
+                return copies[key]
+
+            calls[name].append(tuple(keep(a) for a in args))
             return originals[name](*args)
         return fn
 
@@ -211,6 +259,29 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def select_bytes(args, idx, mask):
+    """Bytes one ``window_select`` call must move: xyz1 at its centres only
+    (nothing more when xyz1 is the source itself), the source xyz2, the
+    scan permutation, and the indices and mask written."""
+    xyz1, xyz2, perm = args[0], args[1], args[8]
+    centres = 0 if xyz1 is xyz2 else idx.shape[0] * idx.shape[1] * 3 * xyz1.element_size()
+    return centres + nbytes(xyz2, perm, idx, mask)
+
+
+def select_site_row(ws, nbr, site, args):
+    """One recorded ``window_select`` call: checked against the plain
+    version, then timed beside its bound."""
+    idx, mask, same = check_select_site(ws, nbr, args)
+    ms, host_ms = time_ms(lambda: ws.window_select(*args))
+    device_ms = graph_ms(lambda: ws.window_select(*args))
+    plain_ms, _ = time_ms(lambda: nbr.select_neighbors_plain(*args))
+    b_ms, b_by = bound(select_bytes(args, idx, mask),
+                       FLOPS_PER_CANDIDATE * examined(nbr, args, group=False))
+    return dict(site=site, **describe(args, False), ms=ms, host_ms=host_ms,
+                device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=0.0, same_order=same)
+
+
 def check_select_site(ws, nbr, args):
     """Kernel vs plain on one recorded window_select call."""
     import torch
@@ -261,7 +332,7 @@ def describe(args, group):
     xyz1, xyz2, ks, k, dist, cs, ss, mode, perm = args
     return {"centres": list(xyz1.shape), "source": list(xyz2.shape), "window": list(ks),
             "K": k, "radius": dist, "centre_stride": list(cs), "source_stride": list(ss),
-            "mode": mode}
+            "mode": mode, "perm": perm is not None}
 
 
 def kernel_phase(ws, nbr, stream, scans):
@@ -280,18 +351,9 @@ def kernel_phase(ws, nbr, stream, scans):
     check(len(calls["select_and_group"]) == len(GROUP_SITES),
           f"one push made {len(calls['select_and_group'])} select_and_group calls, "
           f"expected {len(GROUP_SITES)}")
-    sites = {"window_select": [], "select_and_group": []}
-    for site, args in zip(SELECT_SITES, calls["window_select"]):
-        idx, mask, same = check_select_site(ws, nbr, args)
-        ms, host_ms = time_ms(lambda: ws.window_select(*args))
-        device_ms = graph_ms(lambda: ws.window_select(*args))
-        plain_ms, _ = time_ms(lambda: nbr.select_neighbors_plain(*args))
-        b_ms, b_by = bound(nbytes(args[0], args[1], idx, mask),
-                           FLOPS_PER_CANDIDATE * examined(nbr, args, group=False))
-        sites["window_select"].append(dict(
-            site=site, **describe(args, False), ms=ms, host_ms=host_ms, device_ms=device_ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
-            same_order=same))
+    sites = {"window_select": [select_site_row(ws, nbr, site, args)
+                               for site, args in zip(SELECT_SITES, calls["window_select"])],
+             "select_and_group": []}
     for site, args in zip(GROUP_SITES, calls["select_and_group"]):
         outs, err, same = check_group_site(ws, nbr, args)
         ms, host_ms = time_ms(lambda: ws.select_and_group(*args))
@@ -417,27 +479,203 @@ def stream_phase(ws, nbr, stream, scans, meta, card):
     return launches
 
 
-def kernels_line(sites, launches, card):
-    """Phase 5: one entry per kernel; times and bounds are per push, summed
-    over the kernel's call sites."""
+def summed(rows, launches):
+    """A kernel's sites on one path: launches in the path's counted run,
+    launches per call of the path, and times and bound per call, summed over
+    the sites."""
+    t_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+    t_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    return {"launches": launches, "launches_per_call": len(rows),
+            "ms": sum(r["ms"] for r in rows), "device_ms": sum(r["device_ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": t_bytes + t_ops,
+            "bound_by": None if not rows else "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": max((r["max_abs_err"] for r in rows), default=0.0)}
+
+
+def kernels_line(paths, card):
+    """Phase 7: one entry per kernel.  ``paths`` maps a path ("stream": one
+    push, "train": one train step) to (its sites by kernel, its launches by
+    kernel).  Top-level times and bound are one call of each path, summed;
+    ``launches`` is the sum of the paths' counted runs."""
     source = "efficientlo_net_torch/ops/csrc/window_select.cu"
     replaces = {"window_select": "efficientlo_net_tpu/ops/pallas_select.py:48",
                 "select_and_group": "efficientlo_net_tpu/ops/pallas_select.py:98"}
     kernels = []
-    for name, rows in sites.items():
-        t_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
-        t_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    for name, where in replaces.items():
+        per = {path: summed(sites[name], launches[name])
+               for path, (sites, launches) in paths.items()}
+        rows = [r for sites, _ in paths.values() for r in sites[name]]
+        total = summed(rows, sum(p["launches"] for p in per.values()))
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
-            "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows), "device_ms": sum(r["device_ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": t_bytes + t_ops,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "per": "push, summed over its call sites",
-            "sites": len(rows), "card": card,
+            "name": name, "route": "cuda", "source": source, "replaces": where,
+            **{k: total[k] for k in ("launches", "max_abs_err", "ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
+            "library_ms": None, "per": "one push plus one train step, summed over call sites",
+            "paths": per, "card": card,
         })
     return {"kernels": kernels}
+
+
+def train_batches(sensor, batch_size):
+    """The fixed batch of the timed steps, then the warm-up batches."""
+    from efficientlo_net_torch.data.synthetic import synthetic_batch
+
+    rng = np.random.default_rng(SEED + 2)
+    return [synthetic_batch(rng, batch_size, sensor, training=True)
+            for _ in range(1 + TRAIN_WARMUP)]
+
+
+def fresh_train_state(cfg, tcfg, dev):
+    from efficientlo_net_torch.pretrained import load_model
+    from efficientlo_net_torch.training.state import create_train_state
+
+    model, meta = load_model(WEIGHTS, cfg, device=dev)
+    return create_train_state(model, tcfg, device=dev), meta
+
+
+def train_kernel_phase(ws, nbr, cfg, tcfg, batch, dev):
+    """Phase 5: record the select calls of one train step, then replay every
+    call site through the kernel and the plain version, checked and timed."""
+    import torch
+
+    from efficientlo_net_torch.training.step import make_train_step
+
+    state, _ = fresh_train_state(cfg, tcfg, dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    with recording(ws) as calls:
+        make_train_step(cfg, tcfg)(state, batch, gen)
+    check(len(calls["window_select"]) == len(TRAIN_SELECT_SITES),
+          f"one train step made {len(calls['window_select'])} window_select calls, "
+          f"expected {len(TRAIN_SELECT_SITES)}")
+    check(not calls["select_and_group"], "a train step called the fused select_and_group")
+    rows = []
+    for site, args in zip(TRAIN_SELECT_SITES, calls["window_select"]):
+        row = select_site_row(ws, nbr, site, args)
+        check(row["same_order"], f"window_select at train site {site}: slot order differs")
+        check(row["perm"] == (row["mode"] == nbr.FIRST_K),
+              f"train site {site}: a first-K select without a scan permutation")
+        emit({"phase": "train_kernel_site", "kernel": "window_select", **row})
+        rows.append(row)
+    return {"window_select": rows, "select_and_group": []}
+
+
+def all_finite(tensors):
+    import torch
+
+    return bool(torch.stack([torch.isfinite(x).all() for x in tensors]).all())
+
+
+def run_train(ws, step, state, batches, gen):
+    """One train step per batch.  Returns per step: ms (CUDA events around
+    the step), stage ms, launches and losses; checks finiteness after each
+    step, outside its timing."""
+    import torch
+
+    stages = ("inputs", "forward", "backward", "optimizer")
+    out = []
+    for batch in batches:
+        before = dict(ws.launches)
+        ev = {name: torch.cuda.Event(enable_timing=True) for name in ("start",) + stages}
+        ev["start"].record()
+        state, metrics = step(state, batch, gen, stage=lambda name: ev[name].record())
+        ev["optimizer"].synchronize()
+        marks = [ev["start"]] + [ev[name] for name in stages]
+        losses = {k: float(v) for k, v in metrics.items()}
+        params = state.parameters()
+        check(all(np.isfinite(v) for v in losses.values()), f"non-finite loss {losses}")
+        check(all_finite([p.grad for p in params]), "non-finite gradient")
+        check(all_finite(params), "non-finite parameter after the update")
+        out.append({"ms": ev["start"].elapsed_time(ev["optimizer"]),
+                    "stage_ms": {n: a.elapsed_time(b) for n, a, b in zip(stages, marks, marks[1:])},
+                    "launches": {k: ws.launches[k] - before[k] for k in before},
+                    "losses": losses})
+    return state, out
+
+
+def train_vs_plain(ws, nbr, cfg, tcfg, batch, dev):
+    """One step through the kernel and one through the plain selects, each
+    from a fresh state and the same generator seed.  Returns the largest
+    differences (losses, gradients relative to their scale, statistics)."""
+    import torch
+
+    from efficientlo_net_torch.training.step import make_train_step
+
+    runs = []
+    for plain in (False, True):
+        state, _ = fresh_train_state(cfg, tcfg, dev)
+        gen = torch.Generator(dev).manual_seed(SEED + 3)
+        with plain_selects(ws, nbr) if plain else contextlib.nullcontext():
+            before = dict(ws.launches)
+            state, metrics = make_train_step(cfg, tcfg)(state, batch, gen)
+            torch.cuda.synchronize()
+            launched = {k: ws.launches[k] - before[k] for k in before}
+        grads = {k: p.grad for k, p in state.model.named_parameters()}
+        grads.update(w_x=state.w_x.grad, w_q=state.w_q.grad)
+        stats = {k: v for k, v in state.model.state_dict().items()
+                 if k.endswith((".mean", ".var"))}
+        runs.append(({k: float(v) for k, v in metrics.items()}, grads, stats, launched))
+    (m_k, g_k, s_k, l_k), (m_p, g_p, s_p, l_p) = runs
+    check(l_k == {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0},
+          f"the kernel step launched {l_k}")
+    check(not any(l_p.values()), f"the plain-select step launched {l_p}")
+    loss_err = max(abs(m_k[k] - m_p[k]) for k in m_p)
+    check(loss_err <= TRAIN_LOSS_ATOL, f"kernel step losses {m_k} differ from plain {m_p}")
+    top = max(float(g.abs().max()) for g in g_p.values())
+    grad_err = 0.0
+    for k, g in g_p.items():
+        scale = max(float(g.abs().max()), TRAIN_GRAD_FLOOR * top)
+        err = float((g_k[k] - g).abs().max()) / scale
+        check(err <= TRAIN_GRAD_REL, f"gradient of {k}: kernel step differs from plain by "
+                                     f"{err:.3g} of its scale")
+        grad_err = max(grad_err, err)
+    stats_err = 0.0
+    for k, v in s_p.items():
+        check(torch.allclose(s_k[k], v, **TRAIN_STATS_TOL), f"batch statistic {k} differs")
+        stats_err = max(stats_err, float((s_k[k] - v).abs().max()))
+    return {"loss_max_abs_err": loss_err, "grad_max_rel_err": grad_err,
+            "stats_max_abs_err": stats_err, "losses_kernel": m_k, "losses_plain": m_p,
+            "tolerance": {"loss_atol": TRAIN_LOSS_ATOL, "grad_rel": TRAIN_GRAD_REL,
+                          "grad_floor": TRAIN_GRAD_FLOOR, "stats": TRAIN_STATS_TOL}}
+
+
+def train_phase(ws, nbr, cfg, tcfg, batches, card, dev):
+    """Phase 6: the train path.  Returns the launches of each kernel in its
+    counted run."""
+    import torch
+
+    from efficientlo_net_torch.training.step import make_train_step
+
+    state, meta = fresh_train_state(cfg, tcfg, dev)
+    w0 = (state.w_x.item(), state.w_q.item())
+    step = make_train_step(cfg, tcfg)
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    state, _ = run_train(ws, step, state, batches[1:], gen)  # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats(dev)
+    ws.reset_launches()
+    state, steps = run_train(ws, step, state, [batches[0]] * TRAIN_STEPS, gen)
+    launches = dict(ws.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0}
+    for i, s in enumerate(steps):
+        check(s["launches"] == expected, f"train step {i} launched {s['launches']}, "
+                                         f"expected {expected}")
+    check(state.w_x.item() != w0[0] and state.w_q.item() != w0[1], "w_x / w_q did not move")
+    times = [s["ms"] for s in steps]
+    ms = statistics.median(times)
+    vs_plain = train_vs_plain(ws, nbr, cfg, tcfg, batches[0], dev)
+    emit({"phase": "train", "config": "ModelConfig() full HDL-64 64x1800, TrainConfig()",
+          "weights": WEIGHTS, "trained_epochs": meta.get("trained_epochs"),
+          "batch_size": tcfg.batch_size, "points_per_scan": int(batches[0]["pc1"].shape[1]),
+          "optimizer": tcfg.optimizer, "warmup_steps": TRAIN_WARMUP, "steps": len(steps),
+          "launches_per_step": steps[0]["launches"],
+          "ms_per_step_median": ms, "ms_per_step_max": max(times), "ms_per_step": times,
+          "samples_per_s": tcfg.batch_size * 1000.0 / ms,
+          "stage_ms_median": {n: statistics.median(s["stage_ms"][n] for s in steps)
+                              for n in steps[0]["stage_ms"]},
+          "peak_memory_bytes": peak, "losses_fixed_batch": [s["losses"] for s in steps],
+          "w_x": [w0[0], state.w_x.item()], "w_q": [w0[1], state.w_q.item()],
+          "kernel_vs_plain": vs_plain, "card": card})
+    return launches
 
 
 def main():
@@ -446,7 +684,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
-    from efficientlo_net_torch.config import ModelConfig
+    from efficientlo_net_torch.config import ModelConfig, TrainConfig
     from efficientlo_net_torch.evaluation.streaming import OdometryStream
     from efficientlo_net_torch.ops import cuda_build
     from efficientlo_net_torch.ops import neighbors as nbr
@@ -471,14 +709,23 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": list(cuda_build.SOURCES), "ptxas": ptxas})
 
-    # ---- 3.-5. kernels, stream, kernels line -----------------------------------
+    # ---- 3.-4. stream kernels, stream ------------------------------------------
     cfg = ModelConfig()
     model, meta = load_model(WEIGHTS, cfg, device="cuda")
     stream = OdometryStream(model, cfg, device="cuda")
     scans = make_scans(cfg.sensor, N_SCANS)
-    sites = kernel_phase(ws, nbr, stream, scans)
-    launches = stream_phase(ws, nbr, stream, scans, meta, card)
-    emit(kernels_line(sites, launches, card))
+    stream_sites = kernel_phase(ws, nbr, stream, scans)
+    stream_launches = stream_phase(ws, nbr, stream, scans, meta, card)
+    del stream, model
+
+    # ---- 5.-7. train kernels, train, kernels line ---------------------------------
+    dev = torch.device("cuda")
+    tcfg = TrainConfig()
+    batches = train_batches(cfg.sensor, tcfg.batch_size)
+    train_sites = train_kernel_phase(ws, nbr, cfg, tcfg, batches[0], dev)
+    train_launches = train_phase(ws, nbr, cfg, tcfg, batches, card, dev)
+    emit(kernels_line({"stream": (stream_sites, stream_launches),
+                       "train": (train_sites, train_launches)}, card))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,6 @@
 """Configuration dataclasses for the PyTorch / CUDA port.
 
-The port's own copy of the sensor and network hyperparameters of
+The port's own copy of the sensor, network and training hyperparameters of
 ``efficientlo_net_tpu/config.py`` (the JAX package is the reference and is
 never imported here).  Defaults are the full HDL-64 configuration;
 ``tiny_model_config`` is the scaled-down one the CPU tests use.
@@ -132,3 +132,32 @@ def tiny_model_config(height: int = 16, width: int = 128, num_points: int = 2048
         predictor_mlp=(32, 16),
         head_dim=64,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization hyperparameters, the port's copy of the JAX package's
+    ``TrainConfig`` (same defaults).  The schedules are in
+    ``training/state.py``.  The fields that only the trainer and the loader
+    read (``quantized_transfer``, ``host_projection``,
+    ``cache_decoded_scans``) come with them; an int16 batch is dequantized
+    by its dtype."""
+
+    batch_size: int = 8
+    base_learning_rate: float = 1e-3
+    lr_decay_step: int = 200000  # in samples
+    lr_decay_rate: float = 0.7
+    lr_floor: float = 1e-5
+    optimizer: str = "adam"  # "adam" | "momentum"
+    momentum: float = 0.9
+    max_epoch: int = 1000
+
+    # Batch-norm EMA decay schedule.
+    bn_init_decay: float = 0.5
+    bn_decay_rate: float = 0.5
+    bn_decay_step: int = 200000
+    bn_decay_clip: float = 0.99
+
+    # Initial values of the learned homoscedastic loss weights.
+    w_x_init: float = 0.0
+    w_q_init: float = -2.5

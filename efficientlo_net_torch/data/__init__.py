@@ -1,1 +1,1 @@
-"""Synthetic scans."""
+"""Synthetic scans and batches, training augmentation, int16 point transfer."""

@@ -1,9 +1,10 @@
 """Synthetic LiDAR scans for tests and the on-card smoke run.
 
-The port's own copy of ``random_scene`` and ``synthetic_pair`` from
-``efficientlo_net_tpu/data/synthetic.py``: random structured point sets
-inside the sensor FOV and the planar crop, and pairs related by a known
-rigid motion.  Numpy only, so a seed gives the same scans in both packages.
+The port's own copy of ``random_scene``, ``synthetic_pair`` and
+``synthetic_batch`` from ``efficientlo_net_tpu/data/synthetic.py``: random
+structured point sets inside the sensor FOV and the planar crop, pairs
+related by a known rigid motion, and training batches of them.  Numpy only,
+so a seed gives the same scans in both packages.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..config import SensorConfig
+from .augmentation import augmentation_batch
 
 
 def random_scene(rng: np.random.Generator, n: int, sensor: SensorConfig) -> np.ndarray:
@@ -54,3 +56,20 @@ def synthetic_pair(rng: np.random.Generator, sensor: SensorConfig, motion: np.nd
     r, t = motion[:3, :3], motion[:3, 3]
     pc1 = (scene - t) @ r  # == R^T (S - t)
     return pc1.astype(np.float32), pc2.astype(np.float32), motion.astype(np.float32)
+
+
+def synthetic_batch(rng: np.random.Generator, batch_size: int, sensor: SensorConfig,
+                    training: bool = False) -> dict:
+    """A batch of ``synthetic_pair``s with its augmentation fields, the keys
+    ``training.step`` reads: pc1, pc2 (B, N, 3), T_gt, T_trans, T_trans_inv
+    (B, 4, 4) and aug_frame (B,)."""
+    pc1, pc2, T_gt = zip(*(synthetic_pair(rng, sensor) for _ in range(batch_size)))
+    T_trans, T_trans_inv, aug_frame = augmentation_batch(rng, batch_size, training)
+    return {
+        "pc1": np.stack(pc1),
+        "pc2": np.stack(pc2),
+        "T_gt": np.stack(T_gt),
+        "T_trans": T_trans,
+        "T_trans_inv": T_trans_inv,
+        "aug_frame": aug_frame,
+    }

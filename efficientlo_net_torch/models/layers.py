@@ -1,10 +1,13 @@
 """Layer library: set-conv pyramid, attentive cost volume, predictors.
 
-Port of ``efficientlo_net_tpu/models/layers.py``, eval mode (batch norm reads
-its running statistics; the training slice adds batch statistics).  Tensors
-are channels-last: grids (B, H, W, C), neighbour groups (B, N, K, C).  Module
-and parameter names follow the JAX package's Flax names, so the weight bridge
-(``pretrained.variables_to_state_dict``) maps one to one.
+Port of ``efficientlo_net_tpu/models/layers.py``.  The mode is the module's
+``training`` flag: in eval mode batch norm reads its running statistics, in
+training it normalizes with the batch's and updates the running ones by an
+EMA whose decay ``bn_momentum`` is passed per call.  Tensors are
+channels-last: grids (B, H, W, C), neighbour groups (B, N, K, C).  Module and
+parameter names follow the JAX package's Flax names, so the weight bridge
+(``pretrained.variables_to_state_dict``) maps one to one; initialization is
+Flax's (Xavier-uniform weights, zero biases).
 """
 
 from __future__ import annotations
@@ -20,8 +23,12 @@ _MASK_NEG = -1e10
 
 
 class ScheduledBatchNorm(nn.Module):
-    """Batch norm over all axes but the last, eval branch: running ``mean``
-    and ``var`` buffers, eps 1e-3."""
+    """Batch norm over all axes but the last, eps 1e-3, running ``mean`` and
+    ``var`` buffers.  In training it normalizes with the batch mean and the
+    *biased* batch variance and sets ``running = m * running + (1 - m) *
+    batch`` with the decay ``m`` of the call (a float or a float32 0-d
+    tensor), detached.  (``nn.BatchNorm`` keeps an unbiased running
+    variance and calls ``1 - m`` its momentum.)"""
 
     def __init__(self, features: int, epsilon: float = 1e-3):
         super().__init__()
@@ -31,9 +38,27 @@ class ScheduledBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x):
-        inv = torch.rsqrt(self.var + self.epsilon)
-        return (x - self.mean) * inv * self.scale + self.bias
+    def forward(self, x, momentum=0.99):
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = torch.mean(x, dim=axes)
+            var = torch.var(x, dim=axes, correction=0)
+            with torch.no_grad():
+                self.mean.copy_(momentum * self.mean + (1.0 - momentum) * mean)
+                self.var.copy_(momentum * self.var + (1.0 - momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.epsilon)
+        return (x - mean) * inv * self.scale + self.bias
+
+
+def _dense(in_features: int, out_features: int) -> nn.Linear:
+    """``nn.Linear`` initialized as Flax's ``Dense`` with Xavier-uniform
+    kernel init: U(±sqrt(6 / (in + out))) weights, zero bias."""
+    dense = nn.Linear(in_features, out_features)
+    nn.init.xavier_uniform_(dense.weight)
+    nn.init.zeros_(dense.bias)
+    return dense
 
 
 class ConvMLP(nn.Module):
@@ -43,14 +68,14 @@ class ConvMLP(nn.Module):
         super().__init__()
         self.depth = len(features)
         for i, f in enumerate(features):
-            self.add_module(f"dense_{i}", nn.Linear(in_features, f))
+            self.add_module(f"dense_{i}", _dense(in_features, f))
             self.add_module(f"bn_{i}", ScheduledBatchNorm(f))
             in_features = f
         self.out_features = in_features
 
-    def forward(self, x):
+    def forward(self, x, bn_momentum=0.99):
         for i in range(self.depth):
-            x = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x))
+            x = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x), bn_momentum)
             x = torch.relu(x)
         return x
 
@@ -60,7 +85,7 @@ class Head1x1(nn.Module):
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
-        self.dense = nn.Linear(in_features, features)
+        self.dense = _dense(in_features, features)
 
     def forward(self, x):
         return self.dense(x)
@@ -83,8 +108,9 @@ def valid_mask_from_xyz(xyz_bn3):
 
 class DownConv(nn.Module):
     """Strided set-conv: K window neighbours per strided centre, per-point
-    MLP on (Δxyz, feat), mask, max-pool over K.  The eval path groups with
-    the fused select-and-group."""
+    MLP on (Δxyz, feat), mask, max-pool over K.  Eval groups with the fused
+    select-and-group; training selects, then gathers, so that gradients
+    reach the source features."""
 
     def __init__(self, in_features: int, kernel_size: Tuple[int, int], k: int,
                  distance: float, mlp: Sequence[int], out_hw: Tuple[int, int]):
@@ -95,18 +121,20 @@ class DownConv(nn.Module):
         self.out_hw = tuple(out_hw)
         self.mlp = ConvMLP(3 + in_features, mlp)
 
-    def forward(self, xyz_proj, feat_proj, stride_hw, perm=None):
+    def forward(self, xyz_proj, feat_proj, stride_hw, perm=None, bn_momentum=0.99):
         b = xyz_proj.shape[0]
         oh, ow = self.out_hw
         xyz_group, feat_group, mask = nbr.select_and_group(
             xyz_proj, feat_proj, self.kernel_size, self.k, self.distance,
             center_stride=tuple(stride_hw), mode=nbr.FIRST_K, perm=perm,
+            fused=not self.training,
         )
         new_xyz_proj = xyz_proj[:, :: stride_hw[0], :: stride_hw[1], :].contiguous()
         new_xyz = new_xyz_proj.reshape(b, oh * ow, 3)
 
         diff = xyz_group - new_xyz[:, :, None, :]
-        out = self.mlp(torch.cat([diff, feat_group], dim=-1))
+        out = self.mlp(torch.cat([diff, feat_group], dim=-1), bn_momentum)
+        # amax splits the gradient evenly among tied maxima, as jnp.max does
         out = torch.amax(out * mask, dim=2)  # (B, N, C)
         return out, new_xyz_proj
 
@@ -127,7 +155,7 @@ class UpConv(nn.Module):
         self.mlp = ConvMLP(3 + in_coarse, mlp)
         self.mlp2 = ConvMLP(self.mlp.out_features + in_dense, mlp2)
 
-    def forward(self, xyz1_proj, xyz2_proj, feat1, feat2_proj, perm=None):
+    def forward(self, xyz1_proj, xyz2_proj, feat1, feat2_proj, perm=None, bn_momentum=0.99):
         b, h, w, _ = xyz1_proj.shape
         idx, mask = nbr.select_neighbors(
             xyz1_proj, xyz2_proj, self.kernel_size, self.nsample, self.distance,
@@ -138,9 +166,9 @@ class UpConv(nn.Module):
 
         xyz1 = xyz1_proj.reshape(b, h * w, 3)
         diff = up_xyz - xyz1[:, :, None, :]
-        out = self.mlp(torch.cat([diff, up_feat], dim=-1))
+        out = self.mlp(torch.cat([diff, up_feat], dim=-1), bn_momentum)
         out = torch.amax(out * mask, dim=2)  # (B, HW, C)
-        return self.mlp2(torch.cat([out, feat1], dim=-1))
+        return self.mlp2(torch.cat([out, feat1], dim=-1), bn_momentum)
 
 
 class CostVolume(nn.Module):
@@ -169,7 +197,8 @@ class CostVolume(nn.Module):
         self.cv_sum_xyz = ConvMLP(10, (c,))
         self.cv_agg_mlp = ConvMLP(c + in1 + c, mlp2)
 
-    def forward(self, warped_xyz1_proj, xyz2_proj, feat1_proj, feat2_proj, perm=None):
+    def forward(self, warped_xyz1_proj, xyz2_proj, feat1_proj, feat2_proj, perm=None,
+                bn_momentum=0.99):
         b, h, w, _ = warped_xyz1_proj.shape
         n = h * w
 
@@ -192,9 +221,9 @@ class CostVolume(nn.Module):
         xyz_enc_in = torch.cat([pi_xyz, qi_xyz, diff, euc], dim=-1)
         feat_in = torch.cat([xyz_enc_in, pi_feat, qi_feat], dim=-1)
 
-        feat_emb = self.cv_mlp1(feat_in)
-        xyz_enc = self.cv_xyz(xyz_enc_in)
-        attn = self.cv_sum_mlp(torch.cat([xyz_enc, feat_emb], dim=-1))
+        feat_emb = self.cv_mlp1(feat_in, bn_momentum)
+        xyz_enc = self.cv_xyz(xyz_enc_in, bn_momentum)
+        attn = self.cv_sum_mlp(torch.cat([xyz_enc, feat_emb], dim=-1), bn_momentum)
         attn = torch.where(mask_q > 0, attn, _MASK_NEG)
         wq = torch.softmax(attn, dim=2)
         first = torch.sum(wq * feat_emb, dim=2)  # (B, N, C)
@@ -217,8 +246,9 @@ class CostVolume(nn.Module):
         pc_euc = torch.sqrt(torch.sum(pc_diff * pc_diff, dim=-1, keepdim=True) + 1e-20)
         pc_xyz_in = torch.cat([pc_xyz_new, pc_grouped_xyz, pc_diff, pc_euc], dim=-1)
 
-        pc_xyz_enc = self.cv_sum_xyz(pc_xyz_in)
-        pc_attn = self.cv_agg_mlp(torch.cat([pc_xyz_enc, pc_feat_new, pc_grouped_feat], dim=-1))
+        pc_xyz_enc = self.cv_sum_xyz(pc_xyz_in, bn_momentum)
+        pc_attn = self.cv_agg_mlp(torch.cat([pc_xyz_enc, pc_feat_new, pc_grouped_feat], dim=-1),
+                                  bn_momentum)
         pc_attn = torch.where(mask_p > 0, pc_attn, _MASK_NEG)
         wp = torch.softmax(pc_attn, dim=2)
         return torch.sum(wp * pc_grouped_feat, dim=2)
@@ -231,5 +261,5 @@ class FlowPredictor(nn.Module):
         super().__init__()
         self.mlp = ConvMLP(in_features, mlp)
 
-    def forward(self, inputs):
-        return self.mlp(torch.cat([v for v in inputs if v is not None], dim=-1))
+    def forward(self, inputs, bn_momentum=0.99):
+        return self.mlp(torch.cat([v for v in inputs if v is not None], dim=-1), bn_momentum)

@@ -1,15 +1,21 @@
 """PWCLO-Net: pyramid / warping / cost-volume LiDAR odometry network.
 
-Port of ``efficientlo_net_tpu/models/pwclo.py``, eval mode: a 4-level
-Siamese set-conv pyramid over the cylindrical range image, a coarse
-attentive cost volume regressing an initial pose, and three warp-refinement
-levels.  Full HDL-64 level shapes: 64x1800 -> l0 16x225 -> l1 8x113 -> l2
-4x57 -> l3 4x29.  Submodule names follow the JAX package's Flax names.
+Port of ``efficientlo_net_tpu/models/pwclo.py``: a 4-level Siamese set-conv
+pyramid over the cylindrical range image, a coarse attentive cost volume
+regressing an initial pose, and three warp-refinement levels.  Full HDL-64
+level shapes: 64x1800 -> l0 16x225 -> l1 8x113 -> l2 4x57 -> l3 4x29.
+Submodule names follow the JAX package's Flax names.
+
+The mode is the module's ``training`` flag.  Randomness comes from an
+explicit ``torch.Generator`` on the model's device: in training the pose
+heads' dropout masks, and, with ``stochastic=True``, a fresh scan-order
+permutation at every first-K select (the JAX package's ``neighbor`` and
+``dropout`` streams; the two give different numbers from one seed).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -28,18 +34,33 @@ from .layers import (
 )
 
 
-class PoseHead(nn.Module):
-    """conv1d(head_dim) -> dropout (identity in eval) -> {q head
-    (normalized), t head}."""
+def dropout(x, rate: float, generator: Optional[torch.Generator]):
+    """Flax's ``nn.Dropout`` in training: keep each value with probability
+    1 - rate and scale it by 1 / (1 - rate); rate 0 is the identity."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def __init__(self, in_features: int, head_dim: int):
+
+class PoseHead(nn.Module):
+    """conv1d(head_dim) -> dropout (training only) -> {q head (normalized),
+    t head}."""
+
+    def __init__(self, in_features: int, head_dim: int, dropout_rate: float):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.big = Head1x1(in_features, head_dim)
         self.q_head = Head1x1(head_dim, 4)
         self.t_head = Head1x1(head_dim, 3)
 
-    def forward(self, feat_b1c):
+    def forward(self, feat_b1c, generator=None):
         x = self.big(feat_b1c)
+        if self.training:
+            x = dropout(x, self.dropout_rate, generator)
         q = Q.qnormalize(self.q_head(x))
         t = self.t_head(x)
         return q[:, 0, :], t[:, 0, :]  # (B, 4), (B, 3)
@@ -74,7 +95,7 @@ class PWCLONet(nn.Module):
                                    cfg.down_conv_dis[3], cfg.cv_down_mlp, shapes[5])
         l3_pred_c = cfg.cv_down_mlp[-1]
         self.l3_w_predictor = FlowPredictor(feat_c[3] + l3_pred_c, cfg.predictor_mlp)
-        self.l3_head = PoseHead(l3_pred_c, cfg.head_dim)
+        self.l3_head = PoseHead(l3_pred_c, cfg.head_dim, cfg.dropout_rate)
 
         # Warp-refinement levels l2, l1, l0; up_conv strides map level i to
         # level i+1's grid.
@@ -95,21 +116,35 @@ class PWCLONet(nn.Module):
                                            cfg.predictor_mlp),
                 "pred_w": FlowPredictor(feat_c[i] + cfg.up_mlp2[-1] + cv_c,
                                         cfg.predictor_mlp),
-                "head": PoseHead(pred_c, cfg.head_dim),
+                "head": PoseHead(pred_c, cfg.head_dim, cfg.dropout_rate),
             }
             for name, module in parts.items():
                 self.add_module(f"{name}_l{i}", module)
             self.refine.append(parts)
 
-    def _pyramid(self, xyz_proj):
+    @staticmethod
+    def _perm(kernel_size, stochastic: bool, generator):
+        """Scan-order permutation of a first-K select: a fresh one from
+        ``generator`` at every call when ``stochastic``, else None (scan
+        order)."""
+        if not stochastic:
+            return None
+        if generator is None:
+            raise ValueError("stochastic=True needs a torch.Generator")
+        t = kernel_size[0] * kernel_size[1]
+        return torch.randperm(t, generator=generator, device=generator.device)
+
+    def _pyramid(self, xyz_proj, bn_momentum=0.99, stochastic=False, generator=None):
         """Four down_convs for one (batch of) frame(s); returns per-level
         (xyz_proj, feat, feat_proj)."""
-        shapes = self.cfg.level_shapes
+        cfg = self.cfg
+        shapes = cfg.level_shapes
         feats = []
         cur_xyz = xyz_proj
         cur_feat_proj = torch.zeros_like(xyz_proj)  # zero input features
         for i, layer in enumerate(self.down_layers):
-            feat, new_xyz = layer(cur_xyz, cur_feat_proj, self.down_strides[i])
+            perm = self._perm(cfg.down_kernels[i], stochastic, generator)
+            feat, new_xyz = layer(cur_xyz, cur_feat_proj, self.down_strides[i], perm, bn_momentum)
             h, w = shapes[i + 2]
             feat_proj = feat.reshape(feat.shape[0], h, w, feat.shape[-1])
             feats.append((new_xyz, feat, feat_proj))
@@ -124,17 +159,29 @@ class PWCLONet(nn.Module):
         mask = valid_mask_from_xyz(xyz)[..., None]
         return (Q.qrotate(q, xyz) + t[:, None, :]) * mask
 
-    def forward(self, proj_f1: torch.Tensor, proj_f2: torch.Tensor) -> Dict[str, Any]:
+    def forward(self, proj_f1: torch.Tensor, proj_f2: torch.Tensor, bn_momentum=0.99,
+                stochastic: bool = False, generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Any]:
         """Both frames' range images (B, H, W, 3) -> {"q": [l0..l3], "t": ...}.
-        The Siamese tower runs once on the merged 2B batch (eval-mode batch
-        norm and every pyramid op are independent across the batch)."""
-        b = proj_f1.shape[0]
-        fb = self._pyramid(torch.cat([proj_f1, proj_f2], dim=0))
-        f1 = [tuple(t[:b] for t in lvl) for lvl in fb]
-        f2 = [tuple(t[b:] for t in lvl) for lvl in fb]
-        return self.forward_from_pyramids(f1, f2)
 
-    def forward_from_pyramids(self, f1, f2) -> Dict[str, Any]:
+        In eval the Siamese tower runs once on the merged 2B batch (eval-mode
+        batch norm and every pyramid op are independent across the batch).
+        In training it runs twice, frame 1 then frame 2: batch statistics
+        over a merged 2B batch would differ, and the shared layers update
+        their running statistics once per frame, in that order."""
+        kw = dict(bn_momentum=bn_momentum, stochastic=stochastic, generator=generator)
+        if self.training:
+            f1 = self._pyramid(proj_f1, **kw)
+            f2 = self._pyramid(proj_f2, **kw)
+        else:
+            b = proj_f1.shape[0]
+            fb = self._pyramid(torch.cat([proj_f1, proj_f2], dim=0), **kw)
+            f1 = [tuple(t[:b] for t in lvl) for lvl in fb]
+            f2 = [tuple(t[b:] for t in lvl) for lvl in fb]
+        return self.forward_from_pyramids(f1, f2, **kw)
+
+    def forward_from_pyramids(self, f1, f2, bn_momentum=0.99, stochastic: bool = False,
+                              generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """Correlation + warp-refinement on precomputed feature pyramids
         (a stream caches each frame's pyramid and pairs it with the next)."""
         cfg = self.cfg
@@ -149,19 +196,24 @@ class PWCLONet(nn.Module):
         (l1_xyz2, _, l1_fp2) = f2[1]
         (l2_xyz2, _, l2_fp2) = f2[2]
 
+        def perm(kernel_size):
+            return self._perm(kernel_size, stochastic, generator)
+
+        m = bn_momentum
         # ---- coarse level l3 -------------------------------------------
-        cv = self.cv_origin(l2_xyz1, l2_xyz2, l2_fp1, l2_fp2)
+        cv = self.cv_origin(l2_xyz1, l2_xyz2, l2_fp1, l2_fp2, perm(cfg.cv_kernel1), m)
         h2, w2 = shapes[4]
         cv_proj = cv.reshape(b, h2, w2, cv.shape[-1])
-        l3_predict, _ = self.cv_down_l3(l2_xyz1, cv_proj, self.down_strides[3])
+        l3_predict, _ = self.cv_down_l3(l2_xyz1, cv_proj, self.down_strides[3],
+                                        perm(cfg.down_kernels[3]), m)
 
         h3, w3 = shapes[5]
         l3_predict_proj = l3_predict.reshape(b, h3, w3, -1)
-        l3_w = self.l3_w_predictor([l3_feat1, l3_predict])
+        l3_w = self.l3_w_predictor([l3_feat1, l3_predict], m)
         l3_w_proj = l3_w.reshape(b, h3, w3, -1)
 
         l3_mask = valid_mask_from_xyz(l3_xyz1.reshape(b, h3 * w3, 3))
-        l3_q, l3_t = self.l3_head(softmax_valid(l3_predict, l3_w, l3_mask))
+        l3_q, l3_t = self.l3_head(softmax_valid(l3_predict, l3_w, l3_mask), generator)
 
         # ---- warp-refinement l2 -> l1 -> l0 ----------------------------
         level_data = [
@@ -178,21 +230,25 @@ class PWCLONet(nn.Module):
         for li, xyz1_proj, feat1, fp2, xyz2_proj, (hl, wl) in level_data:
             parts = self.refine[li]
             warped = self._warp(xyz1_proj, q_coarse, t_coarse)  # (B, N, 3)
-            # warped points derive from the 35 m-cropped input: packed is safe
+            # warped points derive from the 35 m-cropped input: packed is
+            # safe.  Gradients flow through the gather of the winners into
+            # the coarser level's (q, t).
             xyz_warp_proj, feat_warp_proj = project_to_range_image(
                 warped, feat1, hl, wl, cfg.sensor
             )
             feat_warp = feat_warp_proj.reshape(b, hl * wl, -1)
             mask_warp = valid_mask_from_xyz(xyz_warp_proj.reshape(b, hl * wl, 3))
 
-            cv_l = parts["cv"](xyz_warp_proj, xyz2_proj, feat_warp_proj, fp2)
-            up_w = parts["up_w"](xyz_warp_proj, coarser_xyz_proj, feat_warp, coarser_w_proj)
+            cv_l = parts["cv"](xyz_warp_proj, xyz2_proj, feat_warp_proj, fp2,
+                               perm(cfg.cv_kernel1), m)
+            up_w = parts["up_w"](xyz_warp_proj, coarser_xyz_proj, feat_warp, coarser_w_proj,
+                                 perm(cfg.up_kernel), m)
             up_feat = parts["up_feat"](xyz_warp_proj, coarser_xyz_proj, feat_warp,
-                                       coarser_predict_proj)
-            predict = parts["pred_feat"]([feat_warp, up_feat, cv_l])
-            w = parts["pred_w"]([feat_warp, up_w, cv_l])
+                                       coarser_predict_proj, perm(cfg.up_kernel), m)
+            predict = parts["pred_feat"]([feat_warp, up_feat, cv_l], m)
+            w = parts["pred_w"]([feat_warp, up_w, cv_l], m)
 
-            q_det, t_det = parts["head"](softmax_valid(predict, w, mask_warp))
+            q_det, t_det = parts["head"](softmax_valid(predict, w, mask_warp), generator)
             q_new, t_new = Q.compose_pose(q_det, t_det, q_coarse, t_coarse)
 
             qs[li], ts[li] = q_new, t_new

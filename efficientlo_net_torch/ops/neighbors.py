@@ -10,7 +10,8 @@ scan order) or the K nearest (``KNN``, ties to the lowest window slot).
 ``select_neighbors`` and ``select_and_group`` launch the CUDA kernels of
 ``window_select`` for CUDA tensors and run the plain PyTorch versions
 (``*_plain``) for CPU tensors.  The plain versions are also the reference
-the kernels are checked against.
+the kernels are checked against.  The selects carry no gradient (indices and
+masks); ``gather_by_index`` carries it into the gathered values.
 """
 
 from __future__ import annotations
@@ -163,6 +164,12 @@ def select_and_group_plain(
         xyz, xyz, kernel_size, k, distance, center_stride=center_stride,
         mode=mode, perm=perm,
     )
+    return _group(xyz, feats, idx, mask)
+
+
+def _group(xyz, feats, idx, mask):
+    """Gather the selected (xyz, feature) rows, zero where masked; the
+    values are differentiable in ``xyz`` and ``feats``."""
     both = gather_by_index(torch.cat([xyz, feats], dim=-1), idx) * mask
     return both[..., :3], both[..., 3:], mask
 
@@ -195,14 +202,19 @@ def select_neighbors(xyz1, xyz2, kernel_size, k, distance, center_stride=(1, 1),
 
 
 def select_and_group(xyz, feats, kernel_size, k, distance, center_stride=(1, 1),
-                     mode=FIRST_K, perm=None):
-    """Select + group on one grid (the DownConv path in eval mode).  Returns
-    (grouped_xyz (B,N,K,3), grouped_feat (B,N,K,C), mask (B,N,K,1)).  CUDA
-    tensors go to the fused ``select_and_group`` kernel, whose values carry
-    no gradient; CPU tensors to ``select_and_group_plain``."""
-    if _on_cuda(xyz):
-        from .window_select import select_and_group as fused
+                     mode=FIRST_K, perm=None, fused=False):
+    """Select + group on one grid (the DownConv path).  Returns (grouped_xyz
+    (B,N,K,3), grouped_feat (B,N,K,C), mask (B,N,K,1)).
 
-        return fused(xyz, feats, kernel_size, k, distance, center_stride, mode, perm)
-    return select_and_group_plain(xyz, feats, kernel_size, k, distance, center_stride,
-                                  mode, perm)
+    For CUDA tensors, ``fused=True`` (eval) launches the fused
+    ``select_and_group`` kernel, whose values carry no gradient;
+    ``fused=False`` (training) launches the ``window_select`` kernel and
+    gathers with ``gather_by_index``, so gradients flow into ``xyz`` and
+    ``feats``.  CPU tensors take the plain versions either way."""
+    if fused and _on_cuda(xyz):
+        from .window_select import select_and_group as fused_kernel
+
+        return fused_kernel(xyz, feats, kernel_size, k, distance, center_stride, mode, perm)
+    idx, mask = select_neighbors(xyz, xyz, kernel_size, k, distance,
+                                 center_stride=center_stride, mode=mode, perm=perm)
+    return _group(xyz, feats, idx, mask)

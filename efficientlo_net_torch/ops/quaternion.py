@@ -61,9 +61,53 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+def mat_to_euler_zyx(m: torch.Tensor):
+    """Rotation matrix (..., 3, 3) -> (z, y, x) Euler angles, standard-form
+    branch only (no gimbal-lock case), as the reference converts GT."""
+    r11, r12, r13 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    r23, r33 = m[..., 1, 2], m[..., 2, 2]
+    cy = torch.sqrt(r33 * r33 + r23 * r23)
+    return torch.atan2(-r12, r11), torch.atan2(r13, cy), torch.atan2(-r23, r33)
+
+
+def euler_zyx_to_quat(z: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Euler (z then y then x) -> quaternion (..., 4)."""
+    z, y, x = z / 2.0, y / 2.0, x / 2.0
+    cz, sz = torch.cos(z), torch.sin(z)
+    cy, sy = torch.cos(y), torch.sin(y)
+    cx, sx = torch.cos(x), torch.sin(x)
+    return torch.stack(
+        [
+            cx * cy * cz - sx * sy * sz,
+            cx * sy * sz + cy * cz * sx,
+            cx * cz * sy - sx * cy * sz,
+            cx * cy * sz + sx * cz * sy,
+        ],
+        dim=-1,
+    )
+
+
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion through the zyx-Euler path."""
+    return euler_zyx_to_quat(*mat_to_euler_zyx(m))
+
+
+def quat_trans_to_mat4(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(q (..., 4), t (..., 3)) -> homogeneous transform (..., 4, 4)."""
+    top = torch.cat([quat_to_mat(q), t[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype, device=top.device)
+    return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
+
+
 def compose_pose(q_det, t_det, q_coarse, t_coarse):
     """Residual pose composition of the warp-refinement loop:
     q <- q_det ⊗ q_coarse;  t <- R(q_det) t_coarse + t_det."""
     t4 = torch.cat([torch.zeros_like(t_coarse[..., :1]), t_coarse], dim=-1)
     t_rot = qmul(qmul(q_det, t4), qinv(q_det))[..., 1:]
     return qmul(q_det, q_coarse), t_rot + t_det
+
+
+def transform_points(mat4: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Apply homogeneous transforms (..., 4, 4) to points (..., N, 3)."""
+    r, t = mat4[..., :3, :3], mat4[..., :3, 3]
+    return torch.einsum("...ij,...nj->...ni", r, points) + t[..., None, :]

@@ -9,7 +9,8 @@ small pure-Python msgpack reader below, so neither ``msgpack`` nor ``flax``
 is needed.  ``variables_to_state_dict`` maps the nested variables onto
 ``PWCLONet``'s ``state_dict``: a Flax ``Dense.kernel`` (in, out) becomes the
 transposed ``nn.Linear.weight``; batch-norm ``scale``/``bias`` and running
-``mean``/``var`` carry across by name.
+``mean``/``var`` carry across by name.  ``train_state_to_torch`` does the
+same for a JAX train state and returns its loss weights ``w_x``/``w_q``.
 """
 
 from __future__ import annotations
@@ -157,9 +158,19 @@ def variables_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor
     return out
 
 
+def train_state_to_torch(params: Dict[str, Any], batch_stats: Dict[str, Any]):
+    """Map a JAX train state (``params = {"model": ..., "w_x": ..., "w_q":
+    ...}`` and ``batch_stats``, as numpy) onto the port: returns
+    (``PWCLONet`` state dict, w_x, w_q), the loss weights as floats for
+    ``training.state.create_train_state``."""
+    state_dict = variables_to_state_dict({"params": params["model"], "batch_stats": batch_stats})
+    return state_dict, float(np.asarray(params["w_x"])), float(np.asarray(params["w_q"]))
+
+
 def load_model(path: str, cfg, device="cuda"):
     """``PWCLONet(cfg)`` with the artifact's weights, in eval mode on
-    ``device``.  Returns (model, meta)."""
+    ``device`` (``training.state.create_train_state`` turns it into a
+    training start).  Returns (model, meta)."""
     variables, meta = load_pretrained(path)
     model = PWCLONet(cfg)
     model.load_state_dict(variables_to_state_dict(variables), strict=True)

@@ -5,9 +5,12 @@ the select cases of the CPU tests (centre and source strides, uneven
 strides, a window wider than the grid, windows of more than 32 slots, which
 the kernels scan in rounds of 32, FIRST_K with and without a scan
 permutation, KNN with ties): masks and indices must be equal exactly, in the
-same slot order, and the fused kernel's grouped values too.  The kernels
-have no CPU mode, so without a card every test skips.  No JAX import: run
-on the card with
+same slot order, and the fused kernel's grouped values too.  The training
+path (``select_and_group(fused=False)``: the select kernel, then a gather)
+gives the plain version's values and gradients; the select kernel at the
+full-width geometry of ``down_l0`` in training (B=8, 64x1800, a random scan
+order).  The kernels have no CPU mode, so without a card every test skips.
+No JAX import: run on the card with
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_kernels.py
 """
@@ -87,7 +90,7 @@ def test_select_and_group_matches_plain(dev, stride, mode, with_perm):
     feats = rng.standard_normal((2, 7, 16, 5)).astype(np.float32)
     perm = rng.permutation(15) if with_perm else None
     args = (_cuda(g, dev), _cuda(feats, dev), (3, 5), 4, 2.0, stride, mode, _cuda(perm, dev))
-    got = _launched("select_and_group", lambda: nbr.select_and_group(*args))
+    got = _launched("select_and_group", lambda: nbr.select_and_group(*args, fused=True))
     want = nbr.select_and_group_plain(*args)
     for a, b in zip(got, want):
         assert a.shape == b.shape and torch.equal(a, b)
@@ -98,11 +101,82 @@ def test_select_and_group_cases_match_plain(dev, case):
     """One feature channel; 64 channels with K = 32; the fused kernel in KNN."""
     xyz, feats, ks, k, dist, cs, mode = group_inputs(case)
     args = (_cuda(xyz, dev), _cuda(feats, dev), ks, k, dist, cs, mode, None)
-    got = _launched("select_and_group", lambda: nbr.select_and_group(*args))
+    got = _launched("select_and_group", lambda: nbr.select_and_group(*args, fused=True))
     want = nbr.select_and_group_plain(*args)
     for a, b in zip(got, want):
         assert a.shape == b.shape and torch.equal(a, b)
     assert want[2].sum() > 0
+
+
+def _count(fn):
+    """fn()'s result and the launches of each kernel it made."""
+    before = dict(ws.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: ws.launches[k] - before[k] for k in before}
+
+
+@pytest.mark.parametrize("mode,with_perm", MODES)
+def test_unfused_select_and_group_launches_select_and_matches_plain(dev, mode, with_perm):
+    """The training path: one ``window_select`` launch, no fused launch, and
+    the plain version's values exactly (same indices, same gather)."""
+    rng = np.random.default_rng(12)
+    g, _ = make_grids(rng, b=2, h1=8, w1=16)
+    feats = rng.standard_normal((2, 8, 16, 5)).astype(np.float32)
+    perm = rng.permutation(15) if with_perm else None
+    args = (_cuda(g, dev), _cuda(feats, dev), (3, 5), 4, 2.0, (2, 4), mode, _cuda(perm, dev))
+    got, counts = _count(lambda: nbr.select_and_group(*args, fused=False))
+    assert counts == {"window_select": 1, "select_and_group": 0}
+    want = nbr.select_and_group_plain(*args)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+    assert want[2].sum() > 0
+
+
+def test_unfused_select_and_group_gradients_match_plain(dev):
+    """Gradients of the grouped values into the source coordinates and
+    features: through the kernel's indices and through the plain version's.
+    The gather's backward adds with atomics, in an order that changes from
+    run to run, so the two agree to float32 rounding (rtol 1e-5, atol 1e-6),
+    not bit for bit."""
+    rng = np.random.default_rng(13)
+    g, _ = make_grids(rng, b=2, h1=16, w1=32)
+    feats = rng.standard_normal((2, 16, 32, 8)).astype(np.float32)
+    perm = rng.permutation(45)
+    cot_x = torch.as_tensor(rng.standard_normal((2, 64, 16, 3)).astype(np.float32)).to(dev)
+    cot_f = torch.as_tensor(rng.standard_normal((2, 64, 16, 8)).astype(np.float32)).to(dev)
+    grads = []
+    for fn in (lambda *a: nbr.select_and_group(*a, fused=False), nbr.select_and_group_plain):
+        xyz = _cuda(g, dev).requires_grad_()
+        f = _cuda(feats, dev).requires_grad_()
+        gx, gf, _ = fn(xyz, f, (5, 9), 16, 3.0, (2, 4), "first_k", _cuda(perm, dev))
+        ((gx * cot_x).sum() + (gf * cot_f).sum()).backward()
+        grads.append((xyz.grad, f.grad))
+    for a, b in zip(*grads):
+        assert b.abs().sum() > 0
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_window_select_at_train_down_l0_geometry(dev):
+    """``down_l0`` in a full-width train step: B=8 projected 150k-point
+    scans (64x1800), a 9x15 window scanned in a random order, K=32,
+    centres every (4, 8) pixels, radius 0.5 m."""
+    from efficientlo_net_torch.config import SensorConfig
+    from efficientlo_net_torch.data.synthetic import synthetic_pair
+    from efficientlo_net_torch.ops.projection import project_to_range_image
+
+    s = SensorConfig()
+    rng = np.random.default_rng(14)
+    pts = torch.as_tensor(np.stack([synthetic_pair(rng, s)[0] for _ in range(8)])).to(dev)
+    grid, _ = project_to_range_image(pts, None, s.height, s.width, s)
+    perm = torch.randperm(135, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    args = (grid, grid, (9, 15), 32, 0.5, (4, 8), (1, 1), "first_k", perm)
+    (idx, mask), counts = _count(lambda: nbr.select_neighbors(*args))
+    assert counts == {"window_select": 1, "select_and_group": 0}
+    assert idx.shape == (8, 16 * 225, 32)
+    idx_p, mask_p = nbr.select_neighbors_plain(*args)
+    assert torch.equal(mask, mask_p) and torch.equal(idx, idx_p)
+    assert mask.sum() > 0
 
 
 def test_wrappers_refuse_bad_input(dev):
