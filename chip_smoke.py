@@ -40,8 +40,29 @@ printing JSON lines:
    one step through the kernel and one through the plain selects, from the
    same state and generator seed: the losses, every gradient and the new
    batch statistics must agree (``TRAIN_*`` tolerances below);
-7. the ``kernels`` line (each kernel's launches, times and bound, per path
-   and summed), then the card line, then the result line.
+7. trainer and sequence eval: a KITTI-layout tree of sequence 04 (271
+   full-width frames, 150k points each, 0.5 m apart along a 135 m path
+   through ``random_scene`` blocks) is written to a temporary directory;
+   ``Trainer(device="cuda")`` with the 50-epoch weights takes 6 steps
+   through the real loader (disk, ``make_batch``, mirroring and pinning in
+   the loader's workers, ``device_prefetch``); every step must launch
+   ``window_select`` 23 times and ``select_and_group`` never, losses
+   finite, ``w_x``/``w_q`` moved;
+   ms per step (CUDA events from one step's end to the next, loader in the
+   loop), samples/s, peak memory.  A checkpoint saved and restored into a
+   fresh ``Trainer`` must be bit-equal (parameters, buffers, ``w_x``,
+   ``w_q``, Adam moments) and resume at epoch 1.  ``validate()`` runs
+   streaming sequence eval over the 271 frames at B=8: every batch must
+   launch ``window_select`` 14 times and ``select_and_group`` 5 times,
+   t_rel and r_rel must be finite and ``04_pred.txt`` written; the pairwise
+   ``predict_sequence`` must give the streaming (q, t) within
+   ``EVAL_QT_ATOL``; frames/s of both.  The select calls of the first
+   streaming batch (B=8) and of the same pairs through the pairwise step
+   (the 2B tower) are recorded and replayed through the kernel and the
+   plain version, checked as in phase 3;
+8. the ``kernels`` line (each kernel's launches, times and bound, per path
+   and summed), the total seconds, then the card line, then the result
+   line.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 check fails.
@@ -51,6 +72,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -97,6 +119,19 @@ TRAIN_LOSS_ATOL = 1e-5
 TRAIN_STATS_TOL = dict(rtol=1e-5, atol=1e-5)
 TRAIN_GRAD_REL = 1e-4
 TRAIN_GRAD_FLOOR = 1e-2
+# Trainer and sequence-eval path: sequence 04 (the shortest, 271 frames)
+# written as a KITTI tree, poses KITTI_STEP m apart along x through
+# random_scene blocks laid every KITTI_BLOCK_SPACING m.
+KITTI_SEQ = 4
+KITTI_STEP = 0.5
+KITTI_BLOCK_SPACING = 30.0
+TRAINER_BATCHES = 6
+TIMED_STEPS = slice(2, None)  # steps 3-6: the first two warm the loader's queue
+# Streaming against pairwise sequence eval: the same pairs through a B tower
+# and a 2B tower, whose cuBLAS algorithms may differ by ulps.  A point that
+# such an ulp moves to another pixel in the re-projection moves l0 by more
+# and fails the check.
+EVAL_QT_ATOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -492,11 +527,15 @@ def summed(rows, launches):
             "max_abs_err": max((r["max_abs_err"] for r in rows), default=0.0)}
 
 
-def kernels_line(paths, card):
-    """Phase 7: one entry per kernel.  ``paths`` maps a path ("stream": one
-    push, "train": one train step) to (its sites by kernel, its launches by
-    kernel).  Top-level times and bound are one call of each path, summed;
-    ``launches`` is the sum of the paths' counted runs."""
+def kernels_line(paths, counted, card):
+    """Phase 8: one entry per kernel.  ``paths`` maps a timed path ("stream":
+    one push, "train": one train step) to (its sites by kernel, its launches
+    by kernel); ``counted`` maps an untimed path ("trainer", "sequence_eval")
+    to its launches by kernel, its launches per call by kernel, the unit of
+    a call, the calls made and, where its calls were checked against the
+    plain versions, the largest error by kernel.  Top-level times and bound
+    are one call of each timed path, summed; ``launches`` is the sum of
+    every path's counted run; ``max_abs_err`` the largest of every check."""
     source = "efficientlo_net_torch/ops/csrc/window_select.cu"
     replaces = {"window_select": "efficientlo_net_tpu/ops/pallas_select.py:48",
                 "select_and_group": "efficientlo_net_tpu/ops/pallas_select.py:98"}
@@ -504,13 +543,22 @@ def kernels_line(paths, card):
     for name, where in replaces.items():
         per = {path: summed(sites[name], launches[name])
                for path, (sites, launches) in paths.items()}
+        for path, c in counted.items():
+            per[path] = {"launches": c["launches"][name],
+                         f"launches_per_{c['unit']}": c["per_call"][name], "calls": c["calls"]}
+            if "max_abs_err" in c:
+                per[path]["max_abs_err"] = c["max_abs_err"][name]
         rows = [r for sites, _ in paths.values() for r in sites[name]]
         total = summed(rows, sum(p["launches"] for p in per.values()))
+        total["max_abs_err"] = max([total["max_abs_err"]]
+                                   + [p["max_abs_err"] for p in per.values() if "max_abs_err" in p])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": where,
             **{k: total[k] for k in ("launches", "max_abs_err", "ms", "device_ms", "plain_ms",
                                      "bound_ms", "bound_by")},
-            "library_ms": None, "per": "one push plus one train step, summed over call sites",
+            "library_ms": None,
+            "per": "times and bound: one push plus one train step, summed over call sites; "
+                   "launches: every path's counted run",
             "paths": per, "card": card,
         })
     return {"kernels": kernels}
@@ -678,8 +726,288 @@ def train_phase(ws, nbr, cfg, tcfg, batches, card, dev):
     return launches
 
 
+def kitti_world(sensor, length):
+    """The static world of the written sequence: a ``random_scene`` block of
+    ``sensor.num_points`` points every ``KITTI_BLOCK_SPACING`` m along x over
+    the ``length`` m path, shuffled, so that a pose's scan (the points within
+    the planar crop, the first ``num_points`` of them) samples the blocks in
+    view uniformly."""
+    from efficientlo_net_torch.data.synthetic import random_scene
+
+    rng = np.random.default_rng(SEED + 4)
+    centres = np.arange(0.0, length + KITTI_BLOCK_SPACING, KITTI_BLOCK_SPACING)
+    world = np.concatenate([random_scene(rng, sensor.num_points, sensor)
+                            + np.array([c, 0.0, 0.0], dtype=np.float32) for c in centres])
+    return world[rng.permutation(len(world))]
+
+
+def state_tensors(state):
+    """Every tensor a checkpoint holds, by name."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    out.update(w_x=state.w_x.detach(), w_q=state.w_q.detach())
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"adam.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+def train_through_trainer(ws, trainer, dev):
+    """``train_one_epoch(0, limit_batches=TRAINER_BATCHES)`` with every step
+    timed (CUDA events at its start, after each stage, at its end) and its
+    launches counted.  Returns (steps, the launches of the run, peak bytes)."""
+    import torch
+
+    stages = ("inputs", "forward", "backward", "optimizer")
+    step_fn = trainer.train_step
+    steps = []
+
+    def timed_step(state, batch, generator):
+        before = dict(ws.launches)
+        ev = {name: torch.cuda.Event(enable_timing=True) for name in ("start",) + stages}
+        ev["start"].record()
+        state, metrics = step_fn(state, batch, generator, stage=lambda name: ev[name].record())
+        steps.append({"events": ev, "metrics": metrics,
+                      "launches": {k: ws.launches[k] - before[k] for k in before}})
+        return state, metrics
+
+    trainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats(dev)
+    ws.reset_launches()
+    trainer.train_one_epoch(0, limit_batches=TRAINER_BATCHES)
+    torch.cuda.synchronize()
+    launches = dict(ws.launches)
+    trainer.train_step = step_fn
+    for s in steps:
+        ev = s["events"]
+        s["in_step_ms"] = ev["start"].elapsed_time(ev["optimizer"])
+        marks = [ev["start"]] + [ev[name] for name in stages]
+        s["stage_ms"] = {n: a.elapsed_time(b) for n, a, b in zip(stages, marks, marks[1:])}
+        s["losses"] = {k: float(v) for k, v in s.pop("metrics").items()}
+    for prev, s in zip(steps, steps[1:]):  # one step's end to the next: loader in the loop
+        s["ms"] = prev["events"]["optimizer"].elapsed_time(s["events"]["optimizer"])
+    for s in steps:
+        del s["events"]
+    return steps, launches, torch.cuda.max_memory_allocated(dev)
+
+
+def count_per_batch(ws, stream_fns):
+    """``stream_fns`` wrapped to record each batch's launches (encode, then
+    correlate) into the returned list."""
+    encode, correlate = stream_fns
+    per_batch = []
+
+    def counted_encode(model, points):
+        per_batch.append(dict(ws.launches))
+        return encode(model, points)
+
+    def counted_correlate(model, pyr_new, pyr_prev):
+        out = correlate(model, pyr_new, pyr_prev)
+        per_batch[-1] = {k: ws.launches[k] - v for k, v in per_batch[-1].items()}
+        return out
+
+    return (counted_encode, counted_correlate), per_batch
+
+
+def eval_kernel_checks(ws, nbr, trainer, dev):
+    """Phase 7's kernel checks: the select calls of the first batch of
+    streaming eval (``encode_step`` and ``correlate_step`` at B) and of the
+    same pairs through pairwise eval (``eval_step``, its 2B tower) are
+    recorded, and every call is replayed through the kernel and its plain
+    version, as in phase 3.  Returns, per eval path, the calls checked and
+    the batch of each kernel's calls, and the largest error."""
+    import torch
+
+    from efficientlo_net_torch.data.loader import make_batch, quantize_points, to_device
+    from efficientlo_net_torch.evaluation.runner import sequence_indices
+
+    model, ds, bsz = trainer.state.model, trainer.dataset, trainer.train_cfg.batch_size
+    encode, correlate = trainer.stream_eval_fns
+    block = quantize_points(np.stack([ds.read_scan(KITTI_SEQ, f) for f in range(bsz)]))
+    with recording(ws) as streaming:
+        pyr = encode(model, to_device({"points": block}, dev)["points"])
+        # frame 0 pairs with itself, frame i with i - 1
+        prev = [tuple(torch.cat([a[:1], a[:-1]]) for a in level) for level in pyr]
+        correlate(model, pyr, prev)
+    pairs = make_batch(ds, sequence_indices(KITTI_SEQ)[:bsz], np.random.default_rng(SEED),
+                       training=False)
+    pairs = dict(pairs, pc1=quantize_points(pairs["pc1"]), pc2=quantize_points(pairs["pc2"]))
+    with recording(ws) as pairwise:
+        trainer.eval_step(model, to_device(pairs, dev))
+    out = {}
+    for path, calls in (("streaming", streaming), ("pairwise", pairwise)):
+        counts = {k: len(v) for k, v in calls.items()}
+        check(counts == {"window_select": len(SELECT_SITES),
+                         "select_and_group": len(GROUP_SITES)},
+              f"one {path} eval batch made {counts} kernel calls")
+        for args in calls["window_select"]:
+            check_select_site(ws, nbr, args)
+        errs = [check_group_site(ws, nbr, args)[1] for args in calls["select_and_group"]]
+        out[path] = {"checked": counts,
+                     "max_abs_err": {"window_select": 0.0, "select_and_group": max(errs)},
+                     "batch": {k: sorted({a[0].shape[0] for a in v}) for k, v in calls.items()}}
+    return out
+
+
+def trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev):
+    """Phase 7: the trainer and sequence-eval paths over a written KITTI
+    sequence.  Returns each path's counted launches for the kernels line."""
+    import tempfile
+
+    import torch
+
+    from efficientlo_net_torch.data.kitti import SEQ_LENGTH_TABLE
+    from efficientlo_net_torch.evaluation.runner import (predict_sequence,
+                                                         predict_sequence_streaming)
+    from efficientlo_net_torch.training.trainer import Trainer
+
+    # numpy only: writes a KITTI tree.  Taken by its bare name, as the card
+    # tests take it: an installed package named ``tests`` would shadow
+    # ``tests.torch_cases``.
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_cases import build_fake_kitti
+
+    n_frames = SEQ_LENGTH_TABLE[KITTI_SEQ + 1] - SEQ_LENGTH_TABLE[KITTI_SEQ]
+    n_batches = -(-n_frames // tcfg.batch_size)
+    per_step = {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0}
+    per_batch_expected = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES)}
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the tree -------------------------------------------------------
+        t0 = time.perf_counter()
+        world = kitti_world(cfg.sensor, (n_frames - 1) * KITTI_STEP)
+        root, gt_dir, written = build_fake_kitti(
+            tmp, world, cfg.sensor.num_points, step=KITTI_STEP,
+            radius=cfg.sensor.max_planar_radius, seq=KITTI_SEQ, n_frames=n_frames)
+        tree = {"frames": n_frames, "path_m": (n_frames - 1) * KITTI_STEP,
+                "world_points": len(world), "bytes": written,
+                "seconds": time.perf_counter() - t0}
+
+        def make_trainer():
+            return Trainer(cfg, tcfg, root, os.path.join(tmp, "log"), gt_dir,
+                           train_list=[KITTI_SEQ], val_list=[KITTI_SEQ], device=dev)
+
+        # ---- training through the loader --------------------------------------
+        trainer = make_trainer()
+        tree["points_per_scan"] = [int(np.any(trainer.dataset.read_scan(KITTI_SEQ, f) != 0,
+                                              axis=-1).sum()) for f in (0, n_frames // 2,
+                                                                        n_frames - 1)]
+        check(min(tree["points_per_scan"]) == cfg.sensor.num_points,
+              f"scans of {tree['points_per_scan']} points, not {cfg.sensor.num_points}")
+        meta = trainer.load_pretrained(WEIGHTS)
+        w0 = (trainer.state.w_x.item(), trainer.state.w_q.item())
+        t0 = time.perf_counter()
+        steps, train_launches, peak = train_through_trainer(ws, trainer, dev)
+        train_s = time.perf_counter() - t0
+        state = trainer.state
+        check(state.step == TRAINER_BATCHES, f"trainer took {state.step} steps, "
+                                             f"not {TRAINER_BATCHES}")
+        for i, s in enumerate(steps):
+            check(s["launches"] == per_step, f"trainer step {i} launched {s['launches']}, "
+                                             f"expected {per_step}")
+            check(all(np.isfinite(v) for v in s["losses"].values()),
+                  f"trainer step {i}: non-finite loss {s['losses']}")
+        check(state.w_x.item() != w0[0] and state.w_q.item() != w0[1], "w_x / w_q did not move")
+        timed = steps[TIMED_STEPS]
+        ms = statistics.median(s["ms"] for s in timed)
+        train = {"steps": len(steps), "launches_per_step": steps[0]["launches"],
+                 "ms_per_step_median": ms, "ms_per_step": [s.get("ms") for s in steps],
+                 "in_step_ms": [s["in_step_ms"] for s in steps],
+                 # the device's wait between one step's end and the next's start
+                 "gap_ms_median": statistics.median(s["ms"] - s["in_step_ms"] for s in timed),
+                 "samples_per_s": tcfg.batch_size * 1000.0 / ms,
+                 "stage_ms_median": {n: statistics.median(s["stage_ms"][n] for s in timed)
+                                     for n in steps[0]["stage_ms"]},
+                 "peak_memory_bytes": peak, "seconds": train_s,
+                 "losses": [s["losses"]["loss"] for s in steps],
+                 "w_x": [w0[0], state.w_x.item()], "w_q": [w0[1], state.w_q.item()]}
+
+        # ---- checkpoint round trip --------------------------------------------
+        t0 = time.perf_counter()
+        step = trainer.ckpt.save(state, epoch=0)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(os.path.join(trainer.ckpt.directory, f"ckpt_{step}.pt"))
+        other = make_trainer()
+        t0 = time.perf_counter()
+        other.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(other.start_epoch == 1, f"restored run resumes at epoch {other.start_epoch}")
+        check(other.state.step == TRAINER_BATCHES, f"restored step {other.state.step}")
+        want, got = state_tensors(state), state_tensors(other.state)
+        check(want.keys() == got.keys(), "restored state holds other tensors")
+        differ = [k for k in want if not torch.equal(want[k], got[k])]
+        check(not differ, f"restored tensors differ: {differ[:5]}")
+        del other, want, got
+        checkpoint = {"bytes": ckpt_bytes, "save_s": save_s, "restore_s": restore_s,
+                      "tensors": len(state_tensors(state)), "bit_equal": True}
+
+        # ---- sequence eval -----------------------------------------------------
+        stream_fns = trainer.stream_eval_fns
+        trainer.stream_eval_fns, per_batch = count_per_batch(ws, stream_fns)
+        ws.reset_launches()
+        t0 = time.perf_counter()
+        val = trainer.validate()
+        torch.cuda.synchronize()
+        validate_s = time.perf_counter() - t0
+        eval_launches = dict(ws.launches)
+        trainer.stream_eval_fns = stream_fns
+        check(len(per_batch) == n_batches, f"{len(per_batch)} eval batches, not {n_batches}")
+        for i, c in enumerate(per_batch):
+            check(c == per_batch_expected, f"eval batch {i} launched {c}, "
+                                           f"expected {per_batch_expected}")
+        val_dir = os.path.join(tmp, "log", "val")
+        check(os.path.exists(os.path.join(val_dir, f"{KITTI_SEQ:02d}_pred.txt")),
+              "validate() wrote no trajectory")
+        # the segment errors validate() wrote: first_frame r_err t_err length speed
+        errors = np.loadtxt(os.path.join(val_dir, f"{KITTI_SEQ:02d}_errors.txt"), ndmin=2)
+        t_rel = float(np.mean(errors[:, 2])) * 100.0
+        r_rel = float(np.mean(errors[:, 1])) / np.pi * 180.0 * 100.0
+        check(np.isfinite(t_rel) and np.isfinite(r_rel), f"t_rel {t_rel}, r_rel {r_rel}")
+        check(abs(t_rel - val) <= 1e-9 * max(1.0, abs(val)),
+              f"validate() gave t_rel {val}, its segment errors {t_rel}")
+
+        model, ds, bsz = state.model, trainer.dataset, tcfg.batch_size
+        t0 = time.perf_counter()
+        q_s, t_s = predict_sequence_streaming(*stream_fns, model, ds, KITTI_SEQ, bsz)
+        stream_s = time.perf_counter() - t0
+        before = dict(ws.launches)
+        t0 = time.perf_counter()
+        q_p, t_p = predict_sequence(trainer.eval_step, model, ds, KITTI_SEQ, bsz)
+        pair_s = time.perf_counter() - t0
+        pair_launches = {k: ws.launches[k] - before[k] for k in before}
+        check(pair_launches == {k: v * n_batches for k, v in per_batch_expected.items()},
+              f"pairwise eval launched {pair_launches} over {n_batches} batches")
+        for a in (q_s, t_s, q_p, t_p):
+            check(a.shape[0] == n_frames and np.all(np.isfinite(a)), "eval poses")
+        q_err = float(np.abs(q_s - q_p).max())
+        t_err = float(np.abs(t_s - t_p).max())
+        check(q_err <= EVAL_QT_ATOL and t_err <= EVAL_QT_ATOL,
+              f"streaming and pairwise eval differ: q {q_err}, t {t_err}")
+        vs_plain = eval_kernel_checks(ws, nbr, trainer, dev)
+        sequence_eval = {
+            "frames": n_frames, "batch_size": bsz, "batches": n_batches,
+            "launches_per_batch": per_batch[0], "launches": eval_launches,
+            "t_rel": t_rel, "r_rel": r_rel, "segments": len(errors), "validate_s": validate_s,
+            "validate_frames_per_s": n_frames / validate_s,
+            "streaming_frames_per_s": n_frames / stream_s,
+            "pairwise_frames_per_s": n_frames / pair_s,
+            "pairwise_launches_per_batch": per_batch_expected,
+            "q_max_abs_err_stream_vs_pairwise": q_err,
+            "t_max_abs_err_stream_vs_pairwise": t_err, "tolerance": EVAL_QT_ATOL,
+            "kernel_vs_plain": vs_plain}
+    emit({"phase": "trainer_eval", "config": "ModelConfig() full HDL-64 64x1800, TrainConfig()",
+          "weights": WEIGHTS, "trained_epochs": meta.get("trained_epochs"), "tree": tree,
+          "train": train, "checkpoint": checkpoint, "sequence_eval": sequence_eval, "card": card})
+    return {"trainer": {"launches": train_launches, "per_call": per_step, "unit": "step",
+                        "calls": TRAINER_BATCHES},
+            "sequence_eval": {"launches": eval_launches, "per_call": per_batch_expected,
+                              "unit": "batch", "calls": n_batches,
+                              "max_abs_err": {k: max(v["max_abs_err"][k] for v in vs_plain.values())
+                                              for k in per_batch_expected}}}
+
+
 def main():
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -718,14 +1046,18 @@ def main():
     stream_launches = stream_phase(ws, nbr, stream, scans, meta, card)
     del stream, model
 
-    # ---- 5.-7. train kernels, train, kernels line ---------------------------------
+    # ---- 5.-6. train kernels, train -------------------------------------------
     dev = torch.device("cuda")
     tcfg = TrainConfig()
     batches = train_batches(cfg.sensor, tcfg.batch_size)
     train_sites = train_kernel_phase(ws, nbr, cfg, tcfg, batches[0], dev)
     train_launches = train_phase(ws, nbr, cfg, tcfg, batches, card, dev)
+
+    # ---- 7.-8. trainer and sequence eval, kernels line -------------------------
+    counted = trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev)
     emit(kernels_line({"stream": (stream_sites, stream_launches),
-                       "train": (train_sites, train_launches)}, card))
+                       "train": (train_sites, train_launches)}, counted, card))
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -138,10 +138,9 @@ def tiny_model_config(height: int = 16, width: int = 128, num_points: int = 2048
 class TrainConfig:
     """Optimization hyperparameters, the port's copy of the JAX package's
     ``TrainConfig`` (same defaults).  The schedules are in
-    ``training/state.py``.  The fields that only the trainer and the loader
-    read (``quantized_transfer``, ``host_projection``,
-    ``cache_decoded_scans``) come with them; an int16 batch is dequantized
-    by its dtype."""
+    ``training/state.py``.  There is no ``host_projection`` yet: the port's
+    trainer projects on the device, as the JAX package does with
+    ``host_projection=False``."""
 
     batch_size: int = 8
     base_learning_rate: float = 1e-3
@@ -161,3 +160,11 @@ class TrainConfig:
     # Initial values of the learned homoscedastic loss weights.
     w_x_init: float = 0.0
     w_q_init: float = -2.5
+
+    # int16 point transfer (data/loader.py quantize_points): the trainer
+    # sends clouds at 1.25 mm steps, half the host-to-device bytes.
+    quantized_transfer: bool = False
+
+    # Decoded-scan RAM cache of the training dataset (data/kitti.py): each
+    # scan is read twice an epoch (frame t of one pair, t-1 of the next).
+    cache_decoded_scans: bool = True

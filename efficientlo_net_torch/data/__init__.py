@@ -1,1 +1,2 @@
-"""Synthetic scans and batches, training augmentation, int16 point transfer."""
+"""KITTI dataset, prefetching loader, synthetic scans and batches, training
+augmentation, int16 point transfer."""

@@ -1,10 +1,11 @@
 """Per-sample SE(3) training augmentation (host-side numpy).
 
-The port's own copy of ``random_se3`` and ``augmentation_batch`` from
-``efficientlo_net_tpu/data/augmentation.py``: small random roll and pitch, a
-larger yaw and a clipped Gaussian translation, applied to one randomly
-chosen frame of each pair.  Numpy only, so a seed gives the same arrays in
-both packages.
+The port's own copy of ``random_se3``, ``augmentation_batch`` and
+``mirror_batch`` from ``efficientlo_net_tpu/data/augmentation.py``: small
+random roll and pitch, a larger yaw and a clipped Gaussian translation,
+applied to one randomly chosen frame of each pair, and a y-reflection of
+about half the pairs.  Numpy only, so a seed gives the same arrays in both
+packages.
 """
 
 from __future__ import annotations
@@ -37,6 +38,29 @@ def random_se3(rng: np.random.Generator) -> np.ndarray:
     T[:3, :3] = rx @ ry @ rz
     T[:3, 3] = t
     return T.astype(np.float32)
+
+
+_MIRROR4 = np.diag([1.0, -1.0, 1.0, 1.0]).astype(np.float32)
+
+
+def mirror_batch(batch: dict, rng: np.random.Generator) -> dict:
+    """Reflect about half the samples across the x-z plane (y -> -y) and
+    conjugate their ground truth, ``T' = M T M``, which keeps each pair
+    aligned.  Driving data turns one way more than the other; the reflection
+    makes the yaw distribution the network sees symmetric.  (The JAX
+    package's ``clouds=False`` mode, for host projection, is not ported.)"""
+    pc1, pc2, T_gt = batch["pc1"], batch["pc2"], batch["T_gt"]
+    flip = rng.random(len(pc1)) < 0.5
+    if not np.any(flip):
+        return batch
+    sign = np.where(flip, -1.0, 1.0).astype(pc1.dtype)
+    T_gt = T_gt.copy()
+    T_gt[flip] = _MIRROR4 @ T_gt[flip] @ _MIRROR4
+    pc1 = pc1.copy()
+    pc2 = pc2.copy()
+    pc1[..., 1] *= sign[:, None]
+    pc2[..., 1] *= sign[:, None]
+    return dict(batch, pc1=pc1, pc2=pc2, T_gt=T_gt.astype(np.float32))
 
 
 def augmentation_batch(rng: np.random.Generator, batch_size: int, training: bool):

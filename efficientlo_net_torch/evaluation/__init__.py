@@ -1,1 +1,1 @@
-"""Streaming odometry."""
+"""Streaming odometry, sequence evaluation, trajectories and KITTI metrics."""

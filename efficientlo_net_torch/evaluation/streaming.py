@@ -15,7 +15,7 @@ import torch
 
 from ..config import ModelConfig
 from ..device import resolve_device
-from ..ops.projection import project_to_range_image
+from ..ops.projection import crop_and_project
 
 
 class OdometryStream:
@@ -37,11 +37,7 @@ class OdometryStream:
     def project(self, points: torch.Tensor) -> torch.Tensor:
         """(B, N, 3) raw points -> (B, H, W, 3) range image, after the
         validity mask and the planar crop the network was trained with."""
-        s = self.cfg.sensor
-        valid = torch.any(points != 0.0, dim=-1)
-        keep = valid & (torch.linalg.vector_norm(points[..., :2], dim=-1) <= s.max_planar_radius)
-        img, _ = project_to_range_image(points * keep[..., None], None, s.height, s.width, s)
-        return img
+        return crop_and_project(points, self.cfg.sensor)
 
     @torch.no_grad()
     def push(self, points: np.ndarray):

@@ -78,3 +78,13 @@ def project_to_range_image(points, features, height: int, width: int, sensor: Se
 
     img = take(points)
     return img, (img if features is None else take(features))
+
+
+def crop_and_project(points: torch.Tensor, sensor: SensorConfig) -> torch.Tensor:
+    """Raw scans (B, N, 3) -> range images (B, H, W, 3), after the validity
+    mask and the planar crop the network was trained with (eval inputs)."""
+    valid = torch.any(points != 0.0, dim=-1)
+    keep = valid & (torch.linalg.vector_norm(points[..., :2], dim=-1) <= sensor.max_planar_radius)
+    img, _ = project_to_range_image(points * keep[..., None], None, sensor.height, sensor.width,
+                                    sensor)
+    return img

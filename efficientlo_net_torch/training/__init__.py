@@ -1,1 +1,1 @@
-"""Train state, schedules and the train / eval steps."""
+"""Train state, schedules, the train / eval steps, checkpoints and the trainer."""

@@ -4,7 +4,9 @@ Port of ``efficientlo_net_tpu/training/step.py`` (device projection): one
 step preprocesses and projects both frames on the device, runs the network
 with its two towers, takes the multi-level loss, back-propagates and updates
 the network and the loss weights.  PyTorch runs it eagerly; the JAX package
-jits it into one program.
+jits it into one program.  ``make_streaming_eval_fns`` splits the eval step
+into a per-frame encoder and a per-pair correlation, for sequence
+evaluation.
 """
 
 from __future__ import annotations
@@ -18,10 +20,18 @@ from ..config import ModelConfig, SensorConfig, TrainConfig
 from ..data.loader import POINT_QUANT_SCALE
 from ..models.losses import total_loss
 from ..models.preprocess import preprocess
-from ..ops.projection import project_to_range_image
+from ..ops.projection import crop_and_project, project_to_range_image
 from .state import TrainState, bn_momentum_schedule, lr_schedule
 
 BATCH_KEYS = ("pc1", "pc2", "T_gt", "T_trans", "T_trans_inv", "aug_frame")
+
+
+def dequantize(points: torch.Tensor) -> torch.Tensor:
+    """int16 clouds (quantized transfer) to float32 metres; float clouds
+    pass through."""
+    if points.is_floating_point():
+        return points
+    return points.to(torch.float32) * float(np.float32(1.0 / POINT_QUANT_SCALE))
 
 
 def _forward_inputs(batch: Dict, sensor: SensorConfig, device):
@@ -29,11 +39,7 @@ def _forward_inputs(batch: Dict, sensor: SensorConfig, device):
     (B, H, W, 3), q_gt (B, 4), t_gt (B, 3)).  int16 clouds (quantized
     transfer) are dequantized first.  The projections carry no gradient."""
     b = {k: torch.as_tensor(batch[k], device=device) for k in BATCH_KEYS}
-    pc1, pc2 = b["pc1"], b["pc2"]
-    if not pc1.is_floating_point():
-        inv = float(np.float32(1.0 / POINT_QUANT_SCALE))
-        pc1 = pc1.to(torch.float32) * inv
-        pc2 = pc2.to(torch.float32) * inv
+    pc1, pc2 = dequantize(b["pc1"]), dequantize(b["pc2"])
     pc1, pc2, q_gt, t_gt = preprocess(
         pc1, pc2, b["T_gt"], b["T_trans"], b["T_trans_inv"], b["aug_frame"],
         max_planar_radius=sensor.max_planar_radius,
@@ -92,6 +98,34 @@ def make_eval_step(model_cfg: ModelConfig):
         return {"q": out["q"][0], "t": out["t"][0], "q_gt": q_gt, "t_gt": t_gt}
 
     return eval_step
+
+
+def make_streaming_eval_fns(model_cfg: ModelConfig):
+    """(encode_step, correlate_step) for pyramid-cached sequence evaluation.
+
+    With identity augmentation the eval preprocessing is the validity mask
+    and the 35 m crop, which is per frame: so each frame is projected and
+    encoded once (``encode_step(model, points)``: points (B, N, 3), float or
+    int16, on any device -> the pyramid) and consecutive pyramids are
+    correlated (``correlate_step(model, pyr_new, pyr_prev)`` -> the l0 {"q",
+    "t"}), as the stream does.  Eval-mode towers are deterministic, so the
+    poses are those of ``make_eval_step`` on the same pairs."""
+    sensor = model_cfg.sensor
+
+    @torch.no_grad()
+    def encode_step(model, points):
+        model.eval()
+        device = next(model.parameters()).device
+        points = dequantize(torch.as_tensor(points, device=device))
+        return model._pyramid(crop_and_project(points, sensor))
+
+    @torch.no_grad()
+    def correlate_step(model, pyr_new, pyr_prev):
+        model.eval()
+        out = model.forward_from_pyramids(pyr_new, pyr_prev)
+        return {"q": out["q"][0], "t": out["t"][0]}
+
+    return encode_step, correlate_step
 
 
 def identity_batch_fields(batch_size: int) -> Dict[str, np.ndarray]:

@@ -75,7 +75,7 @@ from efficientlo_net_tpu.ops import quaternion as JQ
 from efficientlo_net_tpu.training import state as JState
 from efficientlo_net_tpu.training.step import _forward_inputs as j_forward_inputs
 from tests.torch_cases import make_grids
-from tests.torch_parity import randomize_batch_stats, t, to_torch_module
+from tests.torch_parity import near_identity_heads, randomize_batch_stats, t, to_torch_module
 
 FEAT_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_REL = 1e-4
@@ -389,18 +389,6 @@ def test_init_matches_flax_statistics():
 TCFG_KW = dict(batch_size=2)
 
 
-def _near_identity_heads(params):
-    """Pose heads that predict near-identity motion: q and t kernels scaled
-    by 1e-2, q bias (1, 0, 0, 0), t bias 0 (see the module docstring)."""
-    params = jax.tree_util.tree_map(lambda x: x, params)  # a copy of the dicts
-    for name in ("l3_head", "head_l0", "head_l1", "head_l2"):
-        for head, bias in (("q_head", [1.0, 0.0, 0.0, 0.0]), ("t_head", [0.0, 0.0, 0.0])):
-            dense = params[name][head]["dense"]
-            dense["kernel"] = dense["kernel"] * 0.01
-            dense["bias"] = jnp.asarray(bias, jnp.float32)
-    return params
-
-
 @pytest.fixture(scope="module")
 def net():
     """The tiny network with dropout 0 in both packages, one training batch
@@ -425,7 +413,7 @@ def net():
         return loss, (mutated["batch_stats"], metrics)
 
     grad_fn = jax.jit(jax.grad(loss_fn, has_aux=True))
-    params = {"model": _near_identity_heads(variables["params"]), "w_x": jnp.float32(0.1),
+    params = {"model": near_identity_heads(variables["params"]), "w_x": jnp.float32(0.1),
               "w_q": jnp.float32(-2.4)}
     return dict(j_cfg=j_cfg, t_cfg=t_cfg, batch=batch, inputs=(p1, p2, q_gt, t_gt),
                 params=params, batch_stats=variables["batch_stats"], grad_fn=grad_fn)

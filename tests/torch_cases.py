@@ -1,8 +1,11 @@
-"""Select cases and comparisons shared by the port's tests (tests/test_torch_*.py).
+"""Select cases, comparisons and a KITTI-layout tree shared by the port's
+tests (tests/test_torch_*.py).
 
-Numpy only, with no JAX import, so the card tests (tests/test_torch_kernels.py)
-can use it on a machine that has no JAX.
+Numpy only, with no JAX import, so the card tests (tests/test_torch_kernels.py,
+tests/test_torch_trainer.py) can use it on a machine that has no JAX.
 """
+
+import os
 
 import numpy as np
 
@@ -95,3 +98,55 @@ def rows_equal_as_multisets(got, want):
             g = sorted(map(tuple, got[bi, ni].tolist()))
             w = sorted(map(tuple, want[bi, ni].tolist()))
             assert g == w, (bi, ni)
+
+
+KITTI_SEQ = 4  # the shortest KITTI sequence: 271 frames
+KITTI_SEQ_FRAMES = 271
+# LiDAR -> camera calibration of the fake tree: camera = R_C2L^-1 lidar
+KITTI_TR = np.array([[0, -1, 0, 0], [0, 0, -1, 0], [1, 0, 0, 0]], dtype=np.float64)
+
+
+def build_fake_kitti(base_dir, world, num_points, step=0.5, radius=None,
+                     seq=KITTI_SEQ, n_frames=KITTI_SEQ_FRAMES):
+    """Write a KITTI-layout tree for one sequence under ``base_dir``:
+    ``dataset/XX/calib.txt`` (with ``Tr:``), ``dataset/XX/velodyne/%06d.bin``
+    (float32 N x 4), ``ground_truth_pose/XX.txt`` (camera-frame absolute
+    poses) and ``ground_truth_pose/kitti_T_diff/XX_diff.npy`` (per-pair
+    relative poses).  The vehicle moves ``step`` m along LiDAR +x per frame
+    through the static ``world`` (M, 3); scan i is the world seen from pose
+    i, only the points within ``radius`` m in the plane when given, the
+    first ``num_points`` of them, zero-padded.  Returns (dataset_root,
+    gt_dir, bytes written)."""
+    base = str(base_dir)
+    root = os.path.join(base, "dataset")
+    seq_dir = os.path.join(root, f"{seq:02d}")
+    velo = os.path.join(seq_dir, "velodyne")
+    gt_dir = os.path.join(base, "ground_truth_pose")
+    os.makedirs(velo)
+    os.makedirs(os.path.join(gt_dir, "kitti_T_diff"))
+    with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
+        f.write("P0: " + " ".join(["0"] * 12) + "\n")
+        f.write("Tr: " + " ".join(f"{v:.12e}" for v in KITTI_TR.reshape(-1)) + "\n")
+    tr4 = np.eye(4)
+    tr4[:3, :] = KITTI_TR
+    world = np.asarray(world, dtype=np.float32)
+    written = 0
+    cam_poses = []
+    for i in range(n_frames):
+        pts = world - np.array([i * step, 0.0, 0.0], dtype=np.float32)  # the pose's frame
+        if radius is not None:
+            pts = pts[np.hypot(pts[:, 0], pts[:, 1]) <= radius]
+        pad = np.zeros((num_points, 4), dtype=np.float32)
+        m = min(len(pts), num_points)
+        pad[:m, :3] = pts[:m]
+        pad.tofile(os.path.join(velo, f"{i:06d}.bin"))
+        written += pad.nbytes
+        world_T_lidar = np.eye(4)
+        world_T_lidar[0, 3] = i * step
+        cam_poses.append(tr4 @ world_T_lidar @ np.linalg.inv(tr4))
+    np.savetxt(os.path.join(gt_dir, f"{seq:02d}.txt"),
+               np.stack([p[:3, :].reshape(-1) for p in cam_poses]))
+    diffs = [np.eye(4)] + [np.linalg.inv(a) @ b for a, b in zip(cam_poses, cam_poses[1:])]
+    np.save(os.path.join(gt_dir, "kitti_T_diff", f"{seq:02d}_diff.npy"),
+            np.stack([d[:3, :].reshape(-1) for d in diffs]))
+    return root, gt_dir, written
