@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``efficientlo_net_torch/ops/csrc`` and drives
-the port's two main paths at the full HDL-64 width (64x1800 range images of
+the port's main paths at the full HDL-64 width (64x1800 range images of
 150k-point scans), from the 50-epoch weights in
 ``pretrained/synthetic_drive_50ep.msgpack``: eval-mode streaming odometry,
-and the train step at ``TrainConfig().batch_size`` = 8.  Phases, each
-printing JSON lines:
+the train step at ``TrainConfig().batch_size`` = 8, the trainer with
+sequence evaluation, and SLAM with loop closures.  Phases, each printing
+JSON lines:
 
 1. device: the card (and its ``nvidia-smi`` name and power limit); TF32 is
    switched off for matmuls and convolutions, so float32 stays float32;
@@ -60,7 +61,29 @@ printing JSON lines:
    streaming batch (B=8) and of the same pairs through the pairwise step
    (the 2B tower) are recorded and replayed through the kernel and the
    plain version, checked as in phase 3;
-8. the ``kernels`` line (each kernel's launches, times and bound, per path
+8. SLAM: a closed-loop drive of ``SLAM_FRAMES`` frames (``synthetic_trajectory``
+   kind "loop", ~144 m) through the drive world (``build_world``,
+   ``make_dynamic_objects``), each 150k-point scan rendered by
+   ``DriveRenderer`` in a pool of worker processes a few frames ahead of
+   its use, pushed through ``OdometryStream(device="cuda")`` and fed to
+   ``SlidingWindowSLAM`` (solver on the card, scan factors, whole-history
+   closure search) with the range image on the card as the keyframe
+   payload.  Each closure candidate is measured both ways with
+   ``measure_relative`` (r = 3) and kept when the two agree; every such
+   call must launch ``window_select`` 14r and ``select_and_group`` 5r + 4
+   times, and at least one candidate must be measured.  After the drive
+   ``global_optimize`` and ``render_map``; keyframe poses finite.  Checks
+   against the CPU, on the same inputs: one captured window solve (odometry
+   and closure factors, prior, scan factors), both ``global_optimize``
+   solves, ``icp_refine`` on a revisit pair, ``compute_normals`` and
+   ``projective_association``; the window solve again under
+   ``torch.set_float32_matmul_precision("high")`` (the solver must keep
+   float32); one ``measure_relative`` through the kernels against the
+   plain selects.  Prints ms per push, ``add_frame``, ``optimize_window``
+   and ``measure_relative``, t_rel / r_rel / ATE of the raw stream, the
+   window and the global pass against the drive's own poses, and the map's
+   median distance to the static world;
+9. the ``kernels`` line (each kernel's launches, times and bound, per path
    and summed), the total seconds, then the card line, then the result
    line.
 
@@ -132,6 +155,50 @@ TIMED_STEPS = slice(2, None)  # steps 3-6: the first two warm the loader's queue
 # such an ulp moves to another pixel in the re-projection moves l0 by more
 # and fails the check.
 EVAL_QT_ATOL = 1e-4
+# SLAM path: the closed loop of the JAX package's eval drive (loop kind,
+# 0.6 m a frame, 8 m corners), 240 frames of it: ~144 m, ending where it
+# started.  SlamConfig as tools/synthetic_drive.py (stage slam) sets it.
+SLAM_FRAMES = 240
+SLAM_SPEED = 0.6
+SLAM_CORNER_RADIUS = 8.0
+SLAM_SEED = 7
+SLAM_REFINEMENTS = 3
+# closure candidates: keyframes within this distance (m) of the newest one
+# by the graph's own estimate; the drive tool's default --closure_radius,
+# wide enough to find the start again through the odometry's drift
+SLAM_CLOSURE_RADIUS = 12.0
+# the two-way gate of tools/synthetic_drive.py: forward @ backward within
+GATE_T_M = 0.15
+GATE_R_DEG = 1.0
+RENDER_WORKERS = 6
+RENDER_AHEAD = 12  # frames rendered ahead of the stream, at most
+THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+# One measure_relative pair through the kernels and through the plain
+# selects: the same arithmetic, as in the stream (STREAM_ATOL), over 1 + r
+# composed network measurements; absolute on the (4, 4) entries, whose
+# translations reach the closure radius.
+MEASURE_ATOL = 1e-4
+# Card against CPU, the same inputs.  Both solve float32 normal equations
+# (gauge weight 1e6, damping 1e-6) with sums in another order (atomic
+# scatter-adds and cuBLAS on the card, MKL on the CPU); Gauss-Newton
+# contracts such differences, so the poses agree to rounding of the
+# solution: 1e-3 on the (4, 4) entries (1 mm, 1 mrad), chi2 to 1e-3.
+SOLVE_POSE_ATOL = 1e-3
+SOLVE_CHI2_RTOL = 1e-3
+# ICP: the same association in another summation order; the pose to 1e-3.
+# Its gates re-associate every iteration, so rounding may flip a few
+# correspondences, bounded by count as below: the inlier fraction to
+# PIXEL_FLIP_FRAC.  One flipped correspondence (a residual of up to 1 m
+# against an RMS of centimetres, among a few thousand inliers) moves the
+# RMS by up to ~10%: ICP_RMS_RTOL.
+ICP_ATOL = 1e-3
+ICP_RMS_RTOL = 0.1
+# Normals and association are elementwise: a pixel may differ only where an
+# ulp of atan2 / asin crosses a pixel border or a gate's threshold, which
+# the tolerance bounds by count: at most 1e-3 of the pixels; normals
+# elsewhere to 1e-4.
+PIXEL_FLIP_FRAC = 1e-3
+NORMAL_ATOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -141,6 +208,12 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def expect(failures, cond, msg):
+    """``check``, deferred: a failed condition is appended to ``failures``."""
+    if not cond:
+        failures.append(msg)
 
 
 def emit(obj):
@@ -528,12 +601,13 @@ def summed(rows, launches):
 
 
 def kernels_line(paths, counted, card):
-    """Phase 8: one entry per kernel.  ``paths`` maps a timed path ("stream":
+    """Phase 9: one entry per kernel.  ``paths`` maps a timed path ("stream":
     one push, "train": one train step) to (its sites by kernel, its launches
-    by kernel); ``counted`` maps an untimed path ("trainer", "sequence_eval")
-    to its launches by kernel, its launches per call by kernel, the unit of
-    a call, the calls made and, where its calls were checked against the
-    plain versions, the largest error by kernel.  Top-level times and bound
+    by kernel); ``counted`` maps an untimed path ("trainer", "sequence_eval",
+    "slam") to its launches by kernel, its launches per call by kernel, the
+    unit of a call, the calls made, where its calls were checked against the
+    plain versions the largest error by kernel, and where it also pushes
+    scans its pushes and launches per push.  Top-level times and bound
     are one call of each timed path, summed; ``launches`` is the sum of
     every path's counted run; ``max_abs_err`` the largest of every check."""
     source = "efficientlo_net_torch/ops/csrc/window_select.cu"
@@ -548,6 +622,8 @@ def kernels_line(paths, counted, card):
                          f"launches_per_{c['unit']}": c["per_call"][name], "calls": c["calls"]}
             if "max_abs_err" in c:
                 per[path]["max_abs_err"] = c["max_abs_err"][name]
+            if "per_push" in c:
+                per[path].update(pushes=c["pushes"], launches_per_push=c["per_push"][name])
         rows = [r for sites, _ in paths.values() for r in sites[name]]
         total = summed(rows, sum(p["launches"] for p in per.values()))
         total["max_abs_err"] = max([total["max_abs_err"]]
@@ -1004,6 +1080,462 @@ def trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev):
                                               for k in per_batch_expected}}}
 
 
+# ---- phase 8: SLAM over a rendered closed-loop drive ---------------------------
+
+_RENDERER = None  # the DriveRenderer of one render worker process
+
+
+def _render_init(world, dynamics, height, width, vfov_up_deg, vfov_down_deg):
+    global _RENDERER
+    from efficientlo_net_torch.data.synthetic import DriveRenderer
+
+    _RENDERER = DriveRenderer(world, height=height, width=width, vfov_up_deg=vfov_up_deg,
+                              vfov_down_deg=vfov_down_deg, dynamics=dynamics)
+
+
+def _render_frame(pose, frame, num_points):
+    """Frame ``frame``'s scan, drawn from a generator of its own so that the
+    workers may render in any order, and the seconds it took."""
+    t0 = time.perf_counter()
+    scan = _RENDERER.render(pose, num_points, np.random.default_rng([SLAM_SEED, frame]),
+                            frame=frame)
+    return scan, time.perf_counter() - t0
+
+
+def drive_world():
+    """(world_T_lidar poses (SLAM_FRAMES, 4, 4), static world points, moving
+    objects) of the loop drive, from SLAM_SEED, in the order of
+    tools/synthetic_drive.py."""
+    from efficientlo_net_torch.data.synthetic import (build_world, make_dynamic_objects,
+                                                      synthetic_trajectory)
+
+    rng = np.random.default_rng(SLAM_SEED)
+    traj = synthetic_trajectory(SLAM_FRAMES, rng, kind="loop", speed=SLAM_SPEED,
+                                radius=SLAM_CORNER_RADIUS)
+    world = build_world(traj, rng)
+    return traj, world, make_dynamic_objects(traj, rng, max(4, SLAM_FRAMES // 120))
+
+
+@contextlib.contextmanager
+def rendered_scans(traj, world, dynamics, sensor):
+    """An iterator of (scan, render seconds) in frame order, rendered by
+    RENDER_WORKERS spawned processes at most RENDER_AHEAD frames ahead of
+    the consumer.  The pool is shut down when the block ends."""
+    import collections
+    import concurrent.futures
+    import multiprocessing
+
+    # one thread per worker: numpy's BLAS threads in six workers would
+    # oversubscribe the host's cores and slow the stream's launches
+    threads = {k: os.environ.get(k) for k in THREAD_VARS}
+    os.environ.update({k: "1" for k in THREAD_VARS})
+    pool = concurrent.futures.ProcessPoolExecutor(
+        RENDER_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_render_init,
+        initargs=(world, dynamics, sensor.height, sensor.width, sensor.vertical_fov_up_deg,
+                  sensor.vertical_fov_down_deg))
+
+    def frames():
+        pending = collections.deque()
+        for i in range(len(traj)):
+            while len(pending) < RENDER_AHEAD and i + len(pending) < len(traj):
+                k = i + len(pending)
+                pending.append(pool.submit(_render_frame, traj[k], k, sensor.num_points))
+            yield pending.popleft().result()
+
+    try:
+        yield frames()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        for k, v in threads.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def measure_launches(seeded):
+    """Launches of one measure_relative call: 1 + r towers (4
+    select_and_group each) and r correlation passes (14 window_select and 1
+    select_and_group each) with a seed, one more of each without."""
+    r = SLAM_REFINEMENTS
+    towers, passes = (1 + r, r) if seeded else (2 + r, r + 1)
+    return {"window_select": len(SELECT_SITES) * passes,
+            "select_and_group": (len(GROUP_SITES) - 1) * towers + passes}
+
+
+class ClosureGate:
+    """The closure function of tools/synthetic_drive.py (stage slam): the
+    candidate pair measured both ways with ``measure_relative``, kept when
+    forward @ backward is within GATE_T_M and GATE_R_DEG of the identity.
+    Records every call's launches and ms, and every candidate."""
+
+    def __init__(self, stream, ws):
+        self.stream, self.ws = stream, ws
+        self.calls, self.candidates = [], []
+
+    def measure(self, img_i, img_j, t_init):
+        before = dict(self.ws.launches)
+        t0 = time.perf_counter()
+        out = self.stream.measure_relative(img_i, img_j, t_init=t_init,
+                                           refinements=SLAM_REFINEMENTS)
+        self.calls.append({"ms": (time.perf_counter() - t0) * 1e3, "seeded": t_init is not None,
+                           "launches": {k: self.ws.launches[k] - before[k] for k in before}})
+        return out
+
+    def __call__(self, img_j, img_i, rel_init=None):
+        fwd = self.measure(img_j, img_i, rel_init)
+        bwd = self.measure(img_i, img_j, None if rel_init is None else np.linalg.inv(rel_init))
+        gap = fwd @ bwd
+        t_gap = float(np.linalg.norm(gap[:3, 3]))
+        r_gap = float(np.degrees(np.arccos(np.clip((np.trace(gap[:3, :3]) - 1.0) / 2.0,
+                                                   -1.0, 1.0))))
+        ok = t_gap <= GATE_T_M and r_gap <= GATE_R_DEG
+        self.candidates.append({"t_gap_m": t_gap, "r_gap_deg": r_gap, "accepted": ok,
+                                "images": (img_j, img_i), "rel_init": rel_init, "fwd": fwd})
+        return fwd if ok else None
+
+
+@contextlib.contextmanager
+def logged_solves(pg):
+    """Wrap ``pose_graph.optimize``: each call's ms (host clock; the caller
+    reads the result back, so the call has ended) and, under key "last",
+    the arguments and outputs of the latest call with a prior and scan
+    factors; under "global", those of every call while ``keep_all`` is set."""
+    log = {"ms": [], "last": None, "global": [], "keep_all": False}
+    original = pg.optimize
+
+    def optimize(poses, factors, cfg=pg.GaussNewtonConfig(), prior=None, scan_factors=None):
+        t0 = time.perf_counter()
+        out = original(poses, factors, cfg, prior=prior, scan_factors=scan_factors)
+        float(out[1][-1])
+        log["ms"].append((time.perf_counter() - t0) * 1e3)
+        call = {"args": (poses, factors, cfg, prior, scan_factors), "out": out}
+        if log["keep_all"]:
+            log["global"].append(call)
+        elif prior is not None and scan_factors is not None:
+            log["last"] = call
+        return out
+
+    pg.optimize = optimize
+    try:
+        yield log
+    finally:
+        pg.optimize = original
+
+
+def on(device, obj):
+    """``obj`` with its tensors (and those of a dataclass's fields) on
+    ``device``."""
+    import dataclasses
+
+    import torch
+
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).to(device)
+                                           for f in dataclasses.fields(obj)
+                                           if torch.is_tensor(getattr(obj, f.name))})
+    return obj
+
+
+def cpu_solve(pg, call):
+    """A captured ``optimize`` call re-run on the CPU from the same inputs:
+    ((poses, chi2 history), ms)."""
+    t0 = time.perf_counter()
+    out = pg.optimize(*(on("cpu", a) for a in call["args"]))
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def compare_solve(card_out, cpu_out, what, failures):
+    """The card's poses and chi2 history against the CPU's; a disagreement
+    is appended to ``failures``."""
+    import torch
+
+    poses, history = (x.cpu() for x in card_out)
+    cpu_poses, cpu_history = cpu_out
+    pose_err = float((poses - cpu_poses).abs().max())
+    chi2_err = float(((history - cpu_history).abs() / cpu_history.abs().clamp(min=1e-6)).max())
+    expect(failures, bool(torch.isfinite(poses).all()), f"{what}: non-finite poses")
+    expect(failures, pose_err <= SOLVE_POSE_ATOL and chi2_err <= SOLVE_CHI2_RTOL,
+           f"{what}: card and CPU differ: poses {pose_err}, chi2 {chi2_err} (relative)")
+    return {"pose_max_abs_err": pose_err, "chi2_max_rel_err": chi2_err}
+
+
+def geometry_vs_cpu(sfm, sensor, img_a, img_b, t_ab, failures):
+    """compute_normals, projective_association and icp_refine of a revisit
+    pair on the card and on the CPU; disagreements are appended to
+    ``failures``."""
+    import torch
+
+    out = {}
+    n_a, ok_a = sfm.compute_normals(img_a)
+    n_b, _ = sfm.compute_normals(img_b)
+    n_a_c, ok_a_c = sfm.compute_normals(img_a.cpu())
+    n_b_c, _ = sfm.compute_normals(img_b.cpu())
+    pixels = ok_a.numel()
+    both = (ok_a.cpu() & ok_a_c)
+    out["normals"] = {"pixels": pixels, "valid": int(ok_a.sum()),
+                      "mask_flips": int((ok_a.cpu() != ok_a_c).sum()),
+                      "max_abs_err": float((n_a.cpu() - n_a_c)[both].abs().max())}
+    expect(failures, out["normals"]["mask_flips"] <= PIXEL_FLIP_FRAC * pixels
+           and out["normals"]["max_abs_err"] <= NORMAL_ATOL,
+           f"compute_normals: card and CPU differ: {out['normals']}")
+
+    t = torch.as_tensor(t_ab, dtype=torch.float32, device=img_a.device)
+    card = sfm.projective_association(img_b, img_a, n_a, t, sensor, normals_j=n_b)
+    cpu = sfm.projective_association(img_b.cpu(), img_a.cpu(), n_a_c, t.cpu(), sensor,
+                                     normals_j=n_b_c)
+    # a point differs when its gate decision does, or when it matched another
+    # pixel (another anchor point; the normals there differ by rounding only)
+    n_err = (card.n_i.cpu() - cpu.n_i).abs().amax(-1)
+    moved = (card.q_i.cpu() != cpu.q_i).any(-1) | (n_err > NORMAL_ATOL)
+    differ = (card.w.cpu() != cpu.w) | (moved & (cpu.w > 0))
+    out["association"] = {"points": cpu.w.numel(), "matched": int(cpu.w.sum()),
+                          "differ": int(differ.sum()),
+                          "normal_max_abs_err": float(n_err[cpu.w > 0].max())}
+    expect(failures, out["association"]["differ"] <= PIXEL_FLIP_FRAC * cpu.w.numel(),
+           f"projective_association: card and CPU differ: {out['association']}")
+
+    t0 = time.perf_counter()
+    icp = sfm.icp_refine(img_a, img_b, t, sensor)
+    icp = [x.cpu() for x in icp]
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    icp_c = sfm.icp_refine(img_a.cpu(), img_b.cpu(), t.cpu(), sensor)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    errs = [float((a - b).abs().max()) for a, b in zip(icp, icp_c)]
+    errs[2] /= max(float(icp_c[2]), 1e-6)  # the RMS, relative
+    out["icp"] = {"t_max_abs_err": errs[0], "inlier_frac": [float(icp[1]), float(icp_c[1])],
+                  "rms_m": [float(icp[2]), float(icp_c[2])], "ms": card_ms, "cpu_ms": cpu_ms,
+                  "moved_m": float(np.linalg.norm(icp_c[0][:3, 3].numpy() - t_ab[:3, 3]))}
+    expect(failures, errs[0] <= ICP_ATOL and errs[1] <= PIXEL_FLIP_FRAC
+           and errs[2] <= ICP_RMS_RTOL,
+           f"icp_refine: card and CPU differ: pose {errs[0]}, inlier fraction {errs[1]}, "
+           f"RMS {errs[2]} (relative)")
+    return out
+
+
+def trajectory_scores(gt, est):
+    """t_rel (%), r_rel (deg / 100 m) over 100 m segments and the
+    unaligned ATE (m) of ``est`` against ``gt``: lists of 4x4 poses."""
+    from efficientlo_net_torch.evaluation.kitti_metrics import evaluate_sequence
+
+    res = evaluate_sequence(gt, est)
+    return {"t_rel": res.t_rel, "r_rel": res.r_rel, "ate_m": res.ate_m}
+
+
+def reanchor(kf_frames, kf_poses, raw):
+    """Per-frame poses from keyframe poses: frame f after keyframe k keeps
+    its raw motion relative to k (as tools/synthetic_drive.py)."""
+    out, ki = [], 0
+    for f in range(len(raw)):
+        while ki + 1 < len(kf_frames) and kf_frames[ki + 1] <= f:
+            ki += 1
+        out.append(kf_poses[ki] @ np.linalg.inv(raw[kf_frames[ki]]) @ raw[f])
+    return out
+
+
+def slam_phase(ws, nbr, cfg, model, card, dev):
+    """Phase 8: SLAM over the rendered loop drive.  Returns the counted
+    launches of the path for the kernels line."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from efficientlo_net_torch.backend import pose_graph as pg
+    from efficientlo_net_torch.backend import scan_factors as sfm
+    from efficientlo_net_torch.backend.slam import SlamConfig, SlidingWindowSLAM
+    from efficientlo_net_torch.evaluation.odometry import quat_to_mat_np
+    from efficientlo_net_torch.evaluation.streaming import OdometryStream
+
+    t0 = time.perf_counter()
+    traj, world, dynamics = drive_world()
+    world_s = time.perf_counter() - t0
+    stream = OdometryStream(model, cfg, device=dev)
+    gate = ClosureGate(stream, ws)
+    slam = SlidingWindowSLAM(
+        SlamConfig(keyframe_distance=2.0, window_size=20, optimize_every=5,
+                   closure_radius=SLAM_CLOSURE_RADIUS, closure_min_gap=15,
+                   closure_search_all=True, use_scan_factors=True,
+                   gn=pg.GaussNewtonConfig(robust_kernel="gm")),
+        closure_fn=gate, scan_sensor=cfg.sensor)
+    check(slam.device.type == dev.type, f"the solver runs on {slam.device}, not {dev}")
+    window_ms = []
+    optimize_window = slam.optimize_window
+
+    def timed_optimize_window():
+        t = time.perf_counter()
+        chi2 = optimize_window()
+        window_ms.append((time.perf_counter() - t) * 1e3)
+        return chi2
+
+    slam.optimize_window = timed_optimize_window
+    raw = [np.eye(4)]
+    render_s, push_ms, add_ms = [], [], []
+    t0 = time.perf_counter()
+    with logged_solves(pg) as solves:
+        ws.reset_launches()
+        with rendered_scans(traj, world, dynamics, cfg.sensor) as scans:
+            for i, (scan, secs) in enumerate(scans):
+                render_s.append(secs)
+                t = time.perf_counter()
+                q, tr = stream.push(scan)
+                push_ms.append((time.perf_counter() - t) * 1e3)
+                img = stream.last_projection[0]  # the range image stays on the card
+                if i == 0:
+                    slam.set_initial_payload(img)
+                    continue
+                m = np.eye(4)
+                m[:3, :3] = quat_to_mat_np(np.asarray(q, np.float64) / np.linalg.norm(q))
+                m[:3, 3] = tr
+                raw.append(raw[-1] @ m)
+                t = time.perf_counter()
+                slam.add_frame(q, tr, payload=img)
+                add_ms.append((time.perf_counter() - t) * 1e3)
+        drive_s = time.perf_counter() - t0
+        slam.optimize_window()
+        launches = dict(ws.launches)
+        window_poses = [p.copy() for p in slam.kf_poses]
+        solves["keep_all"] = True
+        t0 = time.perf_counter()
+        slam.global_optimize()
+        global_s = time.perf_counter() - t0
+    slam.optimize_window = optimize_window
+
+    # ---- launches of the path ---------------------------------------------------
+    # every check from here on is collected, so that the phase prints what it
+    # measured before it fails
+    failures = []
+    n_push = len(push_ms)
+    per_push = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES)}
+    for c in gate.calls:
+        expect(failures, c["launches"] == measure_launches(c["seeded"]),
+               f"a measure_relative call launched {c['launches']}, expected "
+               f"{measure_launches(c['seeded'])}")
+    expected = {k: n_push * per_push[k] + sum(c["launches"][k] for c in gate.calls)
+                for k in per_push}
+    expect(failures, launches == expected, f"the drive launched {launches}, expected {expected}")
+    check(gate.candidates, "no closure candidate was measured")
+    kf = np.stack(slam.kf_poses)
+    expect(failures, np.all(np.isfinite(kf)) and np.all(np.isfinite(np.stack(window_poses))),
+           "non-finite keyframe pose")
+
+    # ---- accuracy against the drive's own poses -----------------------------------
+    gt = [np.linalg.inv(traj[0]) @ p for p in traj]
+    frames = np.asarray(slam.kf_frame_ids)
+    scores = {"stream": trajectory_scores(gt, raw),
+              "window": trajectory_scores(gt, reanchor(frames, window_poses, raw)),
+              "global": trajectory_scores(gt, reanchor(frames, slam.kf_poses, raw))}
+    t0 = time.perf_counter()
+    map_pts = slam.render_map(voxel=0.3, max_range=30.0)
+    map_s = time.perf_counter() - t0
+    anchored = map_pts @ traj[0][:3, :3].T + traj[0][:3, 3]
+    map_dist = float(np.median(cKDTree(world).query(anchored, workers=-1)[0]))
+    expect(failures, len(map_pts) > 0 and np.isfinite(map_dist), "empty map")
+
+    # ---- card against CPU, and the kernels against the plain selects ------------
+    check(solves["last"] is not None, "no window solve had both a prior and scan factors")
+    window = solves["last"]
+    args = window["args"]
+    t0 = time.perf_counter()
+    pg.optimize(*args)[1][-1].item()
+    window_card_ms = (time.perf_counter() - t0) * 1e3
+    cpu_out, cpu_ms = cpu_solve(pg, window)
+    vs_cpu = {"window": compare_solve(window["out"], cpu_out, "window solve", failures)}
+    vs_cpu["window"].update(ms=window_card_ms, cpu_ms=cpu_ms, nodes=int(args[0].shape[0]),
+                            factors=int(args[1].valid.sum()),
+                            scan_pairs=int(args[4].src.numel()),
+                            scan_points=int(args[4].w.numel()),
+                            scan_matched=int((args[4].w > 0).sum()))
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # a caller that allows TF32
+    try:
+        tf32_out = pg.optimize(*args)
+        expect(failures, torch.get_float32_matmul_precision() == "high",
+               "optimize did not restore the caller's matmul precision")
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    vs_cpu["window_under_tf32"] = compare_solve(tf32_out, cpu_out, "window solve under TF32",
+                                                failures)
+    # what the guard prevents: the same solve with full_fp32 unable to
+    # switch TF32 off (recorded, not checked)
+    set_precision = torch.set_float32_matmul_precision
+    set_precision("high")
+    torch.set_float32_matmul_precision = lambda p: None
+    try:
+        unguarded_out = pg.optimize(*args)
+    finally:
+        torch.set_float32_matmul_precision = set_precision
+        set_precision(precision)
+    vs_cpu["window_tf32_unguarded"] = compare_solve(unguarded_out, cpu_out,
+                                                    "window solve, TF32 unguarded", [])
+    check(len(solves["global"]) == 2, f"global_optimize made {len(solves['global'])} solves")
+    vs_cpu["global"] = []
+    for i, call in enumerate(solves["global"]):
+        cpu_out, cpu_ms = cpu_solve(pg, call)
+        vs_cpu["global"].append(dict(compare_solve(call["out"], cpu_out, f"global solve {i}",
+                                                   failures),
+                                     cpu_ms=cpu_ms, ms=solves["ms"][-2 + i]))
+    first = next((c for c in gate.candidates if c["accepted"]), gate.candidates[0])
+    img_a, img_b = first["images"]
+    t_ab = first["fwd"] if first["accepted"] else first["rel_init"]
+    vs_cpu.update(geometry_vs_cpu(sfm, cfg.sensor, img_a, img_b, t_ab, failures))
+
+    kernel_m = stream.measure_relative(img_a, img_b, t_init=first["rel_init"],
+                                       refinements=SLAM_REFINEMENTS)
+    with plain_selects(ws, nbr):
+        plain_m = stream.measure_relative(img_a, img_b, t_init=first["rel_init"],
+                                          refinements=SLAM_REFINEMENTS)
+    measure_err = float(np.abs(kernel_m - plain_m).max())
+    expect(failures, measure_err <= MEASURE_ATOL,
+           f"measure_relative through the kernels differs from the plain selects: {measure_err}")
+
+    accepted = [c for c in gate.candidates if c["accepted"]]
+    call_ms = [c["ms"] for c in gate.calls]
+    emit({"phase": "slam", "config": "ModelConfig() full HDL-64 64x1800", "weights": WEIGHTS,
+          "drive": {"frames": SLAM_FRAMES, "kind": "loop", "speed_m": SLAM_SPEED,
+                    "corner_radius_m": SLAM_CORNER_RADIUS, "seed": SLAM_SEED,
+                    "path_m": float(np.sum(np.linalg.norm(np.diff(traj[:, :3, 3], axis=0),
+                                                          axis=1))),
+                    "world_points": len(world), "moving_objects": len(dynamics),
+                    "points_per_scan": cfg.sensor.num_points, "world_s": world_s,
+                    "render_s_total": float(np.sum(render_s)),
+                    "render_s_median": statistics.median(render_s),
+                    "render_workers": RENDER_WORKERS, "drive_s": drive_s},
+          "slam_config": {"closure_radius_m": SLAM_CLOSURE_RADIUS, "closure_min_gap": 15,
+                          "window_size": 20, "optimize_every": 5, "refinements": SLAM_REFINEMENTS,
+                          "gate": {"t_m": GATE_T_M, "r_deg": GATE_R_DEG},
+                          "solver_device": str(slam.device)},
+          "ms_per_push": {"median": statistics.median(push_ms), "max": max(push_ms)},
+          "ms_per_add_frame": {"median": statistics.median(add_ms), "max": max(add_ms)},
+          "ms_per_optimize_window": {"median": statistics.median(window_ms),
+                                     "max": max(window_ms), "calls": len(window_ms)},
+          "ms_per_optimize_call": {"median": statistics.median(solves["ms"]),
+                                   "max": max(solves["ms"]), "calls": len(solves["ms"])},
+          "ms_per_measure_relative": {"median": statistics.median(call_ms),
+                                      "max": max(call_ms), "calls": len(call_ms)},
+          "global_optimize_s": global_s, "keyframes": len(slam.kf_poses),
+          "candidates": len(gate.candidates), "accepted_closures": len(accepted),
+          "closure_pairs": sorted([int(a), int(b)] for a, b in slam.closed_pairs),
+          "gaps": [{k: c[k] for k in ("t_gap_m", "r_gap_deg", "accepted")}
+                   for c in gate.candidates],
+          "launches": launches, "launches_per_push": per_push,
+          "launches_per_measure_relative": measure_launches(True),
+          "scores": scores, "map_points": len(map_pts), "map_s": map_s,
+          "map_median_dist_m": map_dist, "vs_cpu": vs_cpu,
+          "tolerance": {"solve_pose_atol": SOLVE_POSE_ATOL, "solve_chi2_rtol": SOLVE_CHI2_RTOL,
+                        "icp_atol": ICP_ATOL, "icp_rms_rtol": ICP_RMS_RTOL,
+                        "pixel_flip_frac": PIXEL_FLIP_FRAC,
+                        "normal_atol": NORMAL_ATOL, "measure_atol": MEASURE_ATOL},
+          "measure_relative_kernel_vs_plain_max_abs_err": measure_err,
+          "failures": failures, "card": card})
+    check(not failures, "; ".join(failures))
+    return {"slam": {"launches": launches, "per_call": measure_launches(True),
+                     "unit": "measure_relative", "calls": len(gate.calls),
+                     "pushes": n_push, "per_push": per_push}}
+
+
 def main():
     import torch
 
@@ -1053,8 +1585,11 @@ def main():
     train_sites = train_kernel_phase(ws, nbr, cfg, tcfg, batches[0], dev)
     train_launches = train_phase(ws, nbr, cfg, tcfg, batches, card, dev)
 
-    # ---- 7.-8. trainer and sequence eval, kernels line -------------------------
+    # ---- 7.-9. trainer and sequence eval, SLAM, kernels line -------------------
     counted = trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev)
+    model, _ = load_model(WEIGHTS, cfg, device="cuda")
+    counted.update(slam_phase(ws, nbr, cfg, model, card, dev))
+    del model
     emit(kernels_line({"stream": (stream_sites, stream_launches),
                        "train": (train_sites, train_launches)}, counted, card))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -1,7 +1,8 @@
 """Streaming odometry inference: one new scan per step.
 
 Port of ``OdometryStream`` from ``efficientlo_net_tpu/evaluation/streaming.py``
-(device projection).  Each scan pairs with the previous one, whose range
+(device projection), with the loop-closure measurement ``measure_relative``.
+Each scan pairs with the previous one, whose range
 image and feature pyramid were computed when it arrived, so the steady-state
 cost per frame is one projection, ONE feature tower and the correlation /
 refinement stages.  Eval-mode pyramids are deterministic, so the cached
@@ -16,6 +17,7 @@ import torch
 from ..config import ModelConfig
 from ..device import resolve_device
 from ..ops.projection import crop_and_project
+from .odometry import quat_to_mat_np
 
 
 class OdometryStream:
@@ -38,6 +40,58 @@ class OdometryStream:
         """(B, N, 3) raw points -> (B, H, W, 3) range image, after the
         validity mask and the planar crop the network was trained with."""
         return crop_and_project(points, self.cfg.sensor)
+
+    def _warp_project(self, img: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+        """Rigidly move a (1, H, W, 3) range image's valid points by the
+        (4, 4) ``m`` and re-project them.  Invalid (zero) pixels stay at the
+        origin, or they would all land at m's translation as a phantom
+        point."""
+        pts = img.reshape(img.shape[0], -1, 3)
+        valid = torch.any(pts != 0.0, dim=-1, keepdim=True)
+        moved = pts @ m[:3, :3].T + m[:3, 3]
+        return self.project(torch.where(valid, moved, torch.zeros((), device=pts.device)))
+
+    def _relative(self, pyr_new, pyr_prev) -> np.ndarray:
+        """float64 (4, 4) of the network's l0 (q, t) for one pyramid pair."""
+        out = self.model.forward_from_pyramids(pyr_new, pyr_prev)
+        q = out["q"][0][0].double().cpu().numpy()
+        m = np.eye(4)
+        m[:3, :3] = quat_to_mat_np(q / np.linalg.norm(q))
+        m[:3, 3] = out["t"][0][0].double().cpu().numpy()
+        return m
+
+    @torch.no_grad()
+    def measure_relative(self, img_i, img_j, t_init=None, refinements: int = 2) -> np.ndarray:
+        """Measure i_T_j between two range images by iterated
+        warp-and-measure: the loop-closure measurement primitive.
+
+        The network is trained on consecutive-frame motion (~0.6-0.9 m); a
+        revisit pair can sit meters apart, outside that regime.  So: measure
+        once raw (or start from ``t_init``), then repeatedly warp frame j's
+        points into frame i by the current estimate, re-project, and let the
+        network measure the *residual* motion, which IS in its trained
+        regime.  Each refinement composes ``i_T_j <- delta @ i_T_j``.
+
+        img_i / img_j: (H, W, 3) or (1, H, W, 3) range images, numpy or
+        tensor (e.g. SLAM keyframe payloads).  Returns a (4, 4) float64 numpy
+        i_T_j.  Runs 1 + refinements feature towers and refinements
+        correlation passes with ``t_init``, one more of each without.
+        """
+        def to_batch(x):
+            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+            return x if x.dim() == 4 else x[None]
+
+        img_i, img_j = to_batch(img_i), to_batch(img_j)
+        pyr_i = self.model._pyramid(img_i)
+        if t_init is None:
+            cur = self._relative(self.model._pyramid(img_j), pyr_i)
+        else:
+            cur = np.asarray(t_init, dtype=np.float64).copy()
+        for _ in range(refinements):
+            m = torch.as_tensor(cur, dtype=torch.float32, device=self.device)
+            warped = self._warp_project(img_j, m)
+            cur = self._relative(self.model._pyramid(warped), pyr_i) @ cur
+        return cur
 
     @torch.no_grad()
     def push(self, points: np.ndarray):
