@@ -8,12 +8,13 @@ the port's main paths at the full HDL-64 width (64x1800 range images of
 150k-point scans), from the 50-epoch weights in
 ``pretrained/synthetic_drive_50ep.msgpack``: eval-mode streaming odometry,
 the train step at ``TrainConfig().batch_size`` = 8, the trainer with
-sequence evaluation, and SLAM with loop closures.  Phases, each printing
-JSON lines:
+sequence evaluation, SLAM with loop closures, and the host-projected
+stream, train step and trainer.  Phases, each printing JSON lines:
 
 1. device: the card (and its ``nvidia-smi`` name and power limit); TF32 is
    switched off for matmuls and convolutions, so float32 stays float32;
-2. build: the kernels' build time and ptxas report;
+2. build: the kernels' build time and ptxas report, and the native
+   library's (``native/lidar_io.cpp`` with the host compiler, alongside);
 3. kernels: every select call of one push (14 ``window_select`` and 5
    ``select_and_group`` launches) is replayed on its recorded inputs through
    the kernel and through its plain PyTorch version: K sets and masks must be
@@ -43,8 +44,11 @@ JSON lines:
    batch statistics must agree (``TRAIN_*`` tolerances below);
 7. trainer and sequence eval: a KITTI-layout tree of sequence 04 (271
    full-width frames, 150k points each, 0.5 m apart along a 135 m path
-   through ``random_scene`` blocks) is written to a temporary directory;
-   ``Trainer(device="cuda")`` with the 50-epoch weights takes 6 steps
+   through ``random_scene`` blocks) is written to a temporary directory
+   (phase 9 reads it too); ``Trainer(device="cuda")`` with the 50-epoch
+   weights and ``TrainConfig(host_projection=False)`` (device projection;
+   the default turns host projection on wherever the native library
+   builds) takes 6 steps
    through the real loader (disk, ``make_batch``, mirroring and pinning in
    the loader's workers, ``device_prefetch``); every step must launch
    ``window_select`` 23 times and ``select_and_group`` never, losses
@@ -83,7 +87,30 @@ JSON lines:
    and ``measure_relative``, t_rel / r_rel / ATE of the raw stream, the
    window and the global pass against the drive's own poses, and the map's
    median distance to the static world;
-9. the ``kernels`` line (each kernel's launches, times and bound, per path
+9. host projection: (a) the native library must be at ABI 3 with the
+   fused pass, with no numpy fallback; (b) on the stream's scans (cropped)
+   and one B=8 train batch (cropped and perturbed): ``sort`` and
+   ``scatter`` on the card bit-equal, the card's ``sort`` against the CPU's
+   and the native ``project_batch`` against the card's ``sort`` on at most
+   ``PROJECTION_PIXEL_FRAC`` of the pixels apart, and the fused
+   ``augment_project_batch`` (with a deferred mirror) against the two-pass
+   host path likewise; ms of packed, sort and scatter on the card at B=1
+   and B=8, of the native ``project_scan`` at 1, 4 and 8 threads and of
+   ``augment_project_batch`` at B=8; (c) ``OdometryStream(host_projection=
+   True)`` pushes the same scans: 14 + 5 launches a push, finite poses
+   with unit quaternions; ms per push and per stage, and the largest pose
+   difference from phase 4 (not checked: exact images against packed);
+   (d) ``make_train_step(host_projected=True)`` on the host-projected
+   batches, 2 warm-up and 10 timed steps: 23 + 0 launches a step, finite
+   losses, gradients and parameters; the projected step fed the card's own
+   device-projected images against the device step, from one state and
+   seed (``TRAIN_*`` tolerances); (e) ``Trainer`` with
+   ``host_projection=True`` over phase 7's tree, 6 steps as in phase 7,
+   beside phase 7's numbers; (f) ``utils.profiling.trace`` around
+   TRACE_STEPS steps of a device-projected and of the host-projected
+   trainer: the device's busy and idle share over the window (the union
+   of its CUDA kernel intervals) and its top operations;
+10. the ``kernels`` line (each kernel's launches, times and bound, per path
    and summed), the total seconds, then the card line, then the result
    line.
 
@@ -199,6 +226,14 @@ ICP_RMS_RTOL = 0.1
 # elsewhere to 1e-4.
 PIXEL_FLIP_FRAC = 1e-3
 NORMAL_ATOL = 1e-4
+# Host projection (phase 9).  Two implementations of the exact projection
+# (the card's and the CPU's atan2 / asin, or libm's in the native projector)
+# may put a point that lies within an ulp of a pixel border in either
+# pixel: images differ on at most this share of the pixels
+# (tests/test_host_preprocess.py holds the JAX package to the same bound).
+PROJECTION_PIXEL_FRAC = 1e-3
+NATIVE_THREADS = (1, 4, 8)
+TRACE_STEPS = 4  # trainer steps traced; the window starts at the second
 
 
 class SmokeFailure(RuntimeError):
@@ -525,7 +560,9 @@ def run_stream(stream, ws, scans):
 def stage_times(stream, scans):
     """Median ms per push of each stage (CUDA events on the device's
     timeline, so a stage's time includes any wait for the host's launches):
-    projection, the feature tower, correlation + refinement."""
+    projection (of the scan already on the card; with host projection, the
+    host's projection and the image's copy), the feature tower, correlation
+    + refinement."""
     import torch
 
     model = stream.model
@@ -533,10 +570,10 @@ def stage_times(stream, scans):
     prev = None
     with torch.no_grad():
         for s in scans:
-            pts = torch.as_tensor(s, device=stream.device)[None]
+            pts = None if stream.host_projection else torch.as_tensor(s, device=stream.device)[None]
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             ev[0].record()
-            proj = stream.project(pts)
+            proj = stream.project_scan(s) if pts is None else stream.project(pts)
             ev[1].record()
             pyr = model._pyramid(proj)
             ev[2].record()
@@ -550,7 +587,8 @@ def stage_times(stream, scans):
 
 
 def stream_phase(ws, nbr, stream, scans, meta, card):
-    """Phase 4: the main path.  Returns the launches of each kernel in it."""
+    """Phase 4: the main path.  Returns the launches of each kernel in it and
+    the poses."""
     run_stream(stream, ws, scans[:2])  # warm-up outside the counted run
     ws.reset_launches()
     poses, times, per_push = run_stream(stream, ws, scans)
@@ -584,7 +622,7 @@ def stream_phase(ws, nbr, stream, scans, meta, card):
           "stage_ms_median": stages,
           "last_pose": {"q": poses[-1][0].tolist(), "t": poses[-1][1].tolist()},
           "card": card})
-    return launches
+    return launches, poses
 
 
 def summed(rows, launches):
@@ -601,13 +639,14 @@ def summed(rows, launches):
 
 
 def kernels_line(paths, counted, card):
-    """Phase 9: one entry per kernel.  ``paths`` maps a timed path ("stream":
+    """Phase 10: one entry per kernel.  ``paths`` maps a timed path ("stream":
     one push, "train": one train step) to (its sites by kernel, its launches
     by kernel); ``counted`` maps an untimed path ("trainer", "sequence_eval",
-    "slam") to its launches by kernel, its launches per call by kernel, the
-    unit of a call, the calls made, where its calls were checked against the
-    plain versions the largest error by kernel, and where it also pushes
-    scans its pushes and launches per push.  Top-level times and bound
+    "slam", "host_stream", "host_train_step", "host_trainer") to its
+    launches by kernel, its launches per call by kernel, the unit of a call,
+    the calls made, where its calls were checked against the plain versions
+    the largest error by kernel, and where it also pushes scans its pushes
+    and launches per push.  Top-level times and bound
     are one call of each timed path, summed; ``launches`` is the sum of
     every path's counted run; ``max_abs_err`` the largest of every check."""
     source = "efficientlo_net_torch/ops/csrc/window_select.cu"
@@ -716,50 +755,67 @@ def run_train(ws, step, state, batches, gen):
     return state, out
 
 
-def train_vs_plain(ws, nbr, cfg, tcfg, batch, dev):
-    """One step through the kernel and one through the plain selects, each
-    from a fresh state and the same generator seed.  Returns the largest
-    differences (losses, gradients relative to their scale, statistics)."""
+def one_step(ws, nbr, cfg, tcfg, batch, dev, host_projected=False, plain=False):
+    """One train step from a fresh state and the generator seed SEED + 3,
+    through the kernel or (``plain``) the plain selects.  Returns (losses,
+    gradients, new batch statistics, launches)."""
     import torch
 
     from efficientlo_net_torch.training.step import make_train_step
 
-    runs = []
-    for plain in (False, True):
-        state, _ = fresh_train_state(cfg, tcfg, dev)
-        gen = torch.Generator(dev).manual_seed(SEED + 3)
-        with plain_selects(ws, nbr) if plain else contextlib.nullcontext():
-            before = dict(ws.launches)
-            state, metrics = make_train_step(cfg, tcfg)(state, batch, gen)
-            torch.cuda.synchronize()
-            launched = {k: ws.launches[k] - before[k] for k in before}
-        grads = {k: p.grad for k, p in state.model.named_parameters()}
-        grads.update(w_x=state.w_x.grad, w_q=state.w_q.grad)
-        stats = {k: v for k, v in state.model.state_dict().items()
-                 if k.endswith((".mean", ".var"))}
-        runs.append(({k: float(v) for k, v in metrics.items()}, grads, stats, launched))
-    (m_k, g_k, s_k, l_k), (m_p, g_p, s_p, l_p) = runs
-    check(l_k == {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0},
-          f"the kernel step launched {l_k}")
-    check(not any(l_p.values()), f"the plain-select step launched {l_p}")
+    state, _ = fresh_train_state(cfg, tcfg, dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 3)
+    with plain_selects(ws, nbr) if plain else contextlib.nullcontext():
+        before = dict(ws.launches)
+        state, metrics = make_train_step(cfg, tcfg, host_projected=host_projected)(state, batch, gen)
+        torch.cuda.synchronize()
+        launched = {k: ws.launches[k] - before[k] for k in before}
+    grads = {k: p.grad for k, p in state.model.named_parameters()}
+    grads.update(w_x=state.w_x.grad, w_q=state.w_q.grad)
+    stats = {k: v for k, v in state.model.state_dict().items() if k.endswith((".mean", ".var"))}
+    return {k: float(v) for k, v in metrics.items()}, grads, stats, launched
+
+
+def compare_steps(got, want, what):
+    """Two ``one_step`` results that should be the same optimization: the
+    losses, every gradient (relative to its scale) and the new batch
+    statistics, held to the ``TRAIN_*`` tolerances.  Returns the largest
+    differences."""
+    import torch
+
+    (m_k, g_k, s_k, _), (m_p, g_p, s_p, _) = got, want
     loss_err = max(abs(m_k[k] - m_p[k]) for k in m_p)
-    check(loss_err <= TRAIN_LOSS_ATOL, f"kernel step losses {m_k} differ from plain {m_p}")
+    check(loss_err <= TRAIN_LOSS_ATOL, f"{what[0]} losses {m_k} differ from {what[1]} {m_p}")
     top = max(float(g.abs().max()) for g in g_p.values())
     grad_err = 0.0
     for k, g in g_p.items():
         scale = max(float(g.abs().max()), TRAIN_GRAD_FLOOR * top)
         err = float((g_k[k] - g).abs().max()) / scale
-        check(err <= TRAIN_GRAD_REL, f"gradient of {k}: kernel step differs from plain by "
+        check(err <= TRAIN_GRAD_REL, f"gradient of {k}: {what[0]} differs from {what[1]} by "
                                      f"{err:.3g} of its scale")
         grad_err = max(grad_err, err)
     stats_err = 0.0
     for k, v in s_p.items():
-        check(torch.allclose(s_k[k], v, **TRAIN_STATS_TOL), f"batch statistic {k} differs")
+        check(torch.allclose(s_k[k], v, **TRAIN_STATS_TOL),
+              f"batch statistic {k}: {what[0]} differs from {what[1]}")
         stats_err = max(stats_err, float((s_k[k] - v).abs().max()))
     return {"loss_max_abs_err": loss_err, "grad_max_rel_err": grad_err,
-            "stats_max_abs_err": stats_err, "losses_kernel": m_k, "losses_plain": m_p,
+            "stats_max_abs_err": stats_err,
             "tolerance": {"loss_atol": TRAIN_LOSS_ATOL, "grad_rel": TRAIN_GRAD_REL,
                           "grad_floor": TRAIN_GRAD_FLOOR, "stats": TRAIN_STATS_TOL}}
+
+
+def train_vs_plain(ws, nbr, cfg, tcfg, batch, dev):
+    """One step through the kernel and one through the plain selects, each
+    from a fresh state and the same generator seed.  Returns the largest
+    differences (losses, gradients relative to their scale, statistics)."""
+    kernel = one_step(ws, nbr, cfg, tcfg, batch, dev)
+    plain = one_step(ws, nbr, cfg, tcfg, batch, dev, plain=True)
+    check(kernel[3] == {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0},
+          f"the kernel step launched {kernel[3]}")
+    check(not any(plain[3].values()), f"the plain-select step launched {plain[3]}")
+    return {**compare_steps(kernel, plain, ("kernel step", "plain-select step")),
+            "losses_kernel": kernel[0], "losses_plain": plain[0]}
 
 
 def train_phase(ws, nbr, cfg, tcfg, batches, card, dev):
@@ -923,17 +979,12 @@ def eval_kernel_checks(ws, nbr, trainer, dev):
     return out
 
 
-def trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev):
-    """Phase 7: the trainer and sequence-eval paths over a written KITTI
-    sequence.  Returns each path's counted launches for the kernels line."""
-    import tempfile
-
-    import torch
-
+def kitti_tree(cfg, base):
+    """Sequence 04 written under ``base`` as a KITTI tree for phases 7 and
+    9: 271 full-width frames, 150k points each, KITTI_STEP m apart along x
+    through ``random_scene`` blocks.  Returns (dataset root, gt_dir,
+    description)."""
     from efficientlo_net_torch.data.kitti import SEQ_LENGTH_TABLE
-    from efficientlo_net_torch.evaluation.runner import (predict_sequence,
-                                                         predict_sequence_streaming)
-    from efficientlo_net_torch.training.trainer import Trainer
 
     # numpy only: writes a KITTI tree.  Taken by its bare name, as the card
     # tests take it: an installed package named ``tests`` would shadow
@@ -942,142 +993,166 @@ def trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev):
     from torch_cases import build_fake_kitti
 
     n_frames = SEQ_LENGTH_TABLE[KITTI_SEQ + 1] - SEQ_LENGTH_TABLE[KITTI_SEQ]
+    t0 = time.perf_counter()
+    world = kitti_world(cfg.sensor, (n_frames - 1) * KITTI_STEP)
+    root, gt_dir, written = build_fake_kitti(
+        base, world, cfg.sensor.num_points, step=KITTI_STEP,
+        radius=cfg.sensor.max_planar_radius, seq=KITTI_SEQ, n_frames=n_frames)
+    return root, gt_dir, {"frames": n_frames, "path_m": (n_frames - 1) * KITTI_STEP,
+                          "world_points": len(world), "bytes": written,
+                          "seconds": time.perf_counter() - t0}
+
+
+def make_trainer(cfg, tcfg, tree, log_dir, dev):
+    from efficientlo_net_torch.training.trainer import Trainer
+
+    root, gt_dir, _ = tree
+    return Trainer(cfg, tcfg, root, log_dir, gt_dir, train_list=[KITTI_SEQ],
+                   val_list=[KITTI_SEQ], device=dev)
+
+
+def trainer_steps(ws, trainer, tcfg, dev):
+    """TRAINER_BATCHES steps of ``trainer`` (its weights loaded) through the
+    loader, checked: 23 + 0 launches each, finite losses, ``w_x`` / ``w_q``
+    moved.  Returns (the run's numbers, its launches)."""
+    per_step = {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0}
+    w0 = (trainer.state.w_x.item(), trainer.state.w_q.item())
+    t0 = time.perf_counter()
+    steps, launches, peak = train_through_trainer(ws, trainer, dev)
+    train_s = time.perf_counter() - t0
+    state = trainer.state
+    check(state.step == TRAINER_BATCHES, f"trainer took {state.step} steps, "
+                                         f"not {TRAINER_BATCHES}")
+    for i, s in enumerate(steps):
+        check(s["launches"] == per_step, f"trainer step {i} launched {s['launches']}, "
+                                         f"expected {per_step}")
+        check(all(np.isfinite(v) for v in s["losses"].values()),
+              f"trainer step {i}: non-finite loss {s['losses']}")
+    check(state.w_x.item() != w0[0] and state.w_q.item() != w0[1], "w_x / w_q did not move")
+    timed = steps[TIMED_STEPS]
+    ms = statistics.median(s["ms"] for s in timed)
+    return {"steps": len(steps), "launches_per_step": steps[0]["launches"],
+            "ms_per_step_median": ms, "ms_per_step": [s.get("ms") for s in steps],
+            "in_step_ms": [s["in_step_ms"] for s in steps],
+            # the device's wait between one step's end and the next's start
+            "gap_ms_median": statistics.median(s["ms"] - s["in_step_ms"] for s in timed),
+            "samples_per_s": tcfg.batch_size * 1000.0 / ms,
+            "stage_ms_median": {n: statistics.median(s["stage_ms"][n] for s in timed)
+                                for n in steps[0]["stage_ms"]},
+            "peak_memory_bytes": peak, "seconds": train_s,
+            "losses": [s["losses"]["loss"] for s in steps],
+            "w_x": [w0[0], state.w_x.item()], "w_q": [w0[1], state.w_q.item()]}, launches
+
+
+def trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev, tree, work):
+    """Phase 7: the trainer (device projection) and sequence-eval paths over
+    the written KITTI ``tree``, logging under ``work``.  Returns each path's
+    counted launches for the kernels line, and the trainer's numbers."""
+    import torch
+
+    from efficientlo_net_torch.evaluation.runner import (predict_sequence,
+                                                         predict_sequence_streaming)
+
+    n_frames = tree[2]["frames"]
     n_batches = -(-n_frames // tcfg.batch_size)
     per_step = {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0}
     per_batch_expected = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES)}
-    with tempfile.TemporaryDirectory() as tmp:
-        # ---- the tree -------------------------------------------------------
-        t0 = time.perf_counter()
-        world = kitti_world(cfg.sensor, (n_frames - 1) * KITTI_STEP)
-        root, gt_dir, written = build_fake_kitti(
-            tmp, world, cfg.sensor.num_points, step=KITTI_STEP,
-            radius=cfg.sensor.max_planar_radius, seq=KITTI_SEQ, n_frames=n_frames)
-        tree = {"frames": n_frames, "path_m": (n_frames - 1) * KITTI_STEP,
-                "world_points": len(world), "bytes": written,
-                "seconds": time.perf_counter() - t0}
+    # ---- training through the loader ------------------------------------------
+    check(not tcfg.resolved_host_projection(), "phase 7 measures device projection")
+    trainer = make_trainer(cfg, tcfg, tree, work, dev)
+    scan_points = [int(np.any(trainer.dataset.read_scan(KITTI_SEQ, f) != 0, axis=-1).sum())
+                   for f in (0, n_frames // 2, n_frames - 1)]
+    check(min(scan_points) == cfg.sensor.num_points,
+          f"scans of {scan_points} points, not {cfg.sensor.num_points}")
+    meta = trainer.load_pretrained(WEIGHTS)
+    train, train_launches = trainer_steps(ws, trainer, tcfg, dev)
+    state = trainer.state
 
-        def make_trainer():
-            return Trainer(cfg, tcfg, root, os.path.join(tmp, "log"), gt_dir,
-                           train_list=[KITTI_SEQ], val_list=[KITTI_SEQ], device=dev)
+    # ---- checkpoint round trip --------------------------------------------
+    t0 = time.perf_counter()
+    step = trainer.ckpt.save(state, epoch=0)
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = os.path.getsize(os.path.join(trainer.ckpt.directory, f"ckpt_{step}.pt"))
+    other = make_trainer(cfg, tcfg, tree, work, dev)
+    t0 = time.perf_counter()
+    other.restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(other.start_epoch == 1, f"restored run resumes at epoch {other.start_epoch}")
+    check(other.state.step == TRAINER_BATCHES, f"restored step {other.state.step}")
+    want, got = state_tensors(state), state_tensors(other.state)
+    check(want.keys() == got.keys(), "restored state holds other tensors")
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    check(not differ, f"restored tensors differ: {differ[:5]}")
+    del other, want, got
+    checkpoint = {"bytes": ckpt_bytes, "save_s": save_s, "restore_s": restore_s,
+                  "tensors": len(state_tensors(state)), "bit_equal": True}
 
-        # ---- training through the loader --------------------------------------
-        trainer = make_trainer()
-        tree["points_per_scan"] = [int(np.any(trainer.dataset.read_scan(KITTI_SEQ, f) != 0,
-                                              axis=-1).sum()) for f in (0, n_frames // 2,
-                                                                        n_frames - 1)]
-        check(min(tree["points_per_scan"]) == cfg.sensor.num_points,
-              f"scans of {tree['points_per_scan']} points, not {cfg.sensor.num_points}")
-        meta = trainer.load_pretrained(WEIGHTS)
-        w0 = (trainer.state.w_x.item(), trainer.state.w_q.item())
-        t0 = time.perf_counter()
-        steps, train_launches, peak = train_through_trainer(ws, trainer, dev)
-        train_s = time.perf_counter() - t0
-        state = trainer.state
-        check(state.step == TRAINER_BATCHES, f"trainer took {state.step} steps, "
-                                             f"not {TRAINER_BATCHES}")
-        for i, s in enumerate(steps):
-            check(s["launches"] == per_step, f"trainer step {i} launched {s['launches']}, "
-                                             f"expected {per_step}")
-            check(all(np.isfinite(v) for v in s["losses"].values()),
-                  f"trainer step {i}: non-finite loss {s['losses']}")
-        check(state.w_x.item() != w0[0] and state.w_q.item() != w0[1], "w_x / w_q did not move")
-        timed = steps[TIMED_STEPS]
-        ms = statistics.median(s["ms"] for s in timed)
-        train = {"steps": len(steps), "launches_per_step": steps[0]["launches"],
-                 "ms_per_step_median": ms, "ms_per_step": [s.get("ms") for s in steps],
-                 "in_step_ms": [s["in_step_ms"] for s in steps],
-                 # the device's wait between one step's end and the next's start
-                 "gap_ms_median": statistics.median(s["ms"] - s["in_step_ms"] for s in timed),
-                 "samples_per_s": tcfg.batch_size * 1000.0 / ms,
-                 "stage_ms_median": {n: statistics.median(s["stage_ms"][n] for s in timed)
-                                     for n in steps[0]["stage_ms"]},
-                 "peak_memory_bytes": peak, "seconds": train_s,
-                 "losses": [s["losses"]["loss"] for s in steps],
-                 "w_x": [w0[0], state.w_x.item()], "w_q": [w0[1], state.w_q.item()]}
+    # ---- sequence eval -----------------------------------------------------
+    stream_fns = trainer.stream_eval_fns
+    trainer.stream_eval_fns, per_batch = count_per_batch(ws, stream_fns)
+    ws.reset_launches()
+    t0 = time.perf_counter()
+    val = trainer.validate()
+    torch.cuda.synchronize()
+    validate_s = time.perf_counter() - t0
+    eval_launches = dict(ws.launches)
+    trainer.stream_eval_fns = stream_fns
+    check(len(per_batch) == n_batches, f"{len(per_batch)} eval batches, not {n_batches}")
+    for i, c in enumerate(per_batch):
+        check(c == per_batch_expected, f"eval batch {i} launched {c}, "
+                                       f"expected {per_batch_expected}")
+    val_dir = os.path.join(work, "val")
+    check(os.path.exists(os.path.join(val_dir, f"{KITTI_SEQ:02d}_pred.txt")),
+          "validate() wrote no trajectory")
+    # the segment errors validate() wrote: first_frame r_err t_err length speed
+    errors = np.loadtxt(os.path.join(val_dir, f"{KITTI_SEQ:02d}_errors.txt"), ndmin=2)
+    t_rel = float(np.mean(errors[:, 2])) * 100.0
+    r_rel = float(np.mean(errors[:, 1])) / np.pi * 180.0 * 100.0
+    check(np.isfinite(t_rel) and np.isfinite(r_rel), f"t_rel {t_rel}, r_rel {r_rel}")
+    check(abs(t_rel - val) <= 1e-9 * max(1.0, abs(val)),
+          f"validate() gave t_rel {val}, its segment errors {t_rel}")
 
-        # ---- checkpoint round trip --------------------------------------------
-        t0 = time.perf_counter()
-        step = trainer.ckpt.save(state, epoch=0)
-        save_s = time.perf_counter() - t0
-        ckpt_bytes = os.path.getsize(os.path.join(trainer.ckpt.directory, f"ckpt_{step}.pt"))
-        other = make_trainer()
-        t0 = time.perf_counter()
-        other.restore()
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        check(other.start_epoch == 1, f"restored run resumes at epoch {other.start_epoch}")
-        check(other.state.step == TRAINER_BATCHES, f"restored step {other.state.step}")
-        want, got = state_tensors(state), state_tensors(other.state)
-        check(want.keys() == got.keys(), "restored state holds other tensors")
-        differ = [k for k in want if not torch.equal(want[k], got[k])]
-        check(not differ, f"restored tensors differ: {differ[:5]}")
-        del other, want, got
-        checkpoint = {"bytes": ckpt_bytes, "save_s": save_s, "restore_s": restore_s,
-                      "tensors": len(state_tensors(state)), "bit_equal": True}
-
-        # ---- sequence eval -----------------------------------------------------
-        stream_fns = trainer.stream_eval_fns
-        trainer.stream_eval_fns, per_batch = count_per_batch(ws, stream_fns)
-        ws.reset_launches()
-        t0 = time.perf_counter()
-        val = trainer.validate()
-        torch.cuda.synchronize()
-        validate_s = time.perf_counter() - t0
-        eval_launches = dict(ws.launches)
-        trainer.stream_eval_fns = stream_fns
-        check(len(per_batch) == n_batches, f"{len(per_batch)} eval batches, not {n_batches}")
-        for i, c in enumerate(per_batch):
-            check(c == per_batch_expected, f"eval batch {i} launched {c}, "
-                                           f"expected {per_batch_expected}")
-        val_dir = os.path.join(tmp, "log", "val")
-        check(os.path.exists(os.path.join(val_dir, f"{KITTI_SEQ:02d}_pred.txt")),
-              "validate() wrote no trajectory")
-        # the segment errors validate() wrote: first_frame r_err t_err length speed
-        errors = np.loadtxt(os.path.join(val_dir, f"{KITTI_SEQ:02d}_errors.txt"), ndmin=2)
-        t_rel = float(np.mean(errors[:, 2])) * 100.0
-        r_rel = float(np.mean(errors[:, 1])) / np.pi * 180.0 * 100.0
-        check(np.isfinite(t_rel) and np.isfinite(r_rel), f"t_rel {t_rel}, r_rel {r_rel}")
-        check(abs(t_rel - val) <= 1e-9 * max(1.0, abs(val)),
-              f"validate() gave t_rel {val}, its segment errors {t_rel}")
-
-        model, ds, bsz = state.model, trainer.dataset, tcfg.batch_size
-        t0 = time.perf_counter()
-        q_s, t_s = predict_sequence_streaming(*stream_fns, model, ds, KITTI_SEQ, bsz)
-        stream_s = time.perf_counter() - t0
-        before = dict(ws.launches)
-        t0 = time.perf_counter()
-        q_p, t_p = predict_sequence(trainer.eval_step, model, ds, KITTI_SEQ, bsz)
-        pair_s = time.perf_counter() - t0
-        pair_launches = {k: ws.launches[k] - before[k] for k in before}
-        check(pair_launches == {k: v * n_batches for k, v in per_batch_expected.items()},
-              f"pairwise eval launched {pair_launches} over {n_batches} batches")
-        for a in (q_s, t_s, q_p, t_p):
-            check(a.shape[0] == n_frames and np.all(np.isfinite(a)), "eval poses")
-        q_err = float(np.abs(q_s - q_p).max())
-        t_err = float(np.abs(t_s - t_p).max())
-        check(q_err <= EVAL_QT_ATOL and t_err <= EVAL_QT_ATOL,
-              f"streaming and pairwise eval differ: q {q_err}, t {t_err}")
-        vs_plain = eval_kernel_checks(ws, nbr, trainer, dev)
-        sequence_eval = {
-            "frames": n_frames, "batch_size": bsz, "batches": n_batches,
-            "launches_per_batch": per_batch[0], "launches": eval_launches,
-            "t_rel": t_rel, "r_rel": r_rel, "segments": len(errors), "validate_s": validate_s,
-            "validate_frames_per_s": n_frames / validate_s,
-            "streaming_frames_per_s": n_frames / stream_s,
-            "pairwise_frames_per_s": n_frames / pair_s,
-            "pairwise_launches_per_batch": per_batch_expected,
-            "q_max_abs_err_stream_vs_pairwise": q_err,
-            "t_max_abs_err_stream_vs_pairwise": t_err, "tolerance": EVAL_QT_ATOL,
-            "kernel_vs_plain": vs_plain}
-    emit({"phase": "trainer_eval", "config": "ModelConfig() full HDL-64 64x1800, TrainConfig()",
-          "weights": WEIGHTS, "trained_epochs": meta.get("trained_epochs"), "tree": tree,
+    model, ds, bsz = state.model, trainer.dataset, tcfg.batch_size
+    t0 = time.perf_counter()
+    q_s, t_s = predict_sequence_streaming(*stream_fns, model, ds, KITTI_SEQ, bsz)
+    stream_s = time.perf_counter() - t0
+    before = dict(ws.launches)
+    t0 = time.perf_counter()
+    q_p, t_p = predict_sequence(trainer.eval_step, model, ds, KITTI_SEQ, bsz)
+    pair_s = time.perf_counter() - t0
+    pair_launches = {k: ws.launches[k] - before[k] for k in before}
+    check(pair_launches == {k: v * n_batches for k, v in per_batch_expected.items()},
+          f"pairwise eval launched {pair_launches} over {n_batches} batches")
+    for a in (q_s, t_s, q_p, t_p):
+        check(a.shape[0] == n_frames and np.all(np.isfinite(a)), "eval poses")
+    q_err = float(np.abs(q_s - q_p).max())
+    t_err = float(np.abs(t_s - t_p).max())
+    check(q_err <= EVAL_QT_ATOL and t_err <= EVAL_QT_ATOL,
+          f"streaming and pairwise eval differ: q {q_err}, t {t_err}")
+    vs_plain = eval_kernel_checks(ws, nbr, trainer, dev)
+    sequence_eval = {
+        "frames": n_frames, "batch_size": bsz, "batches": n_batches,
+        "launches_per_batch": per_batch[0], "launches": eval_launches,
+        "t_rel": t_rel, "r_rel": r_rel, "segments": len(errors), "validate_s": validate_s,
+        "validate_frames_per_s": n_frames / validate_s,
+        "streaming_frames_per_s": n_frames / stream_s,
+        "pairwise_frames_per_s": n_frames / pair_s,
+        "pairwise_launches_per_batch": per_batch_expected,
+        "q_max_abs_err_stream_vs_pairwise": q_err,
+        "t_max_abs_err_stream_vs_pairwise": t_err, "tolerance": EVAL_QT_ATOL,
+        "kernel_vs_plain": vs_plain}
+    emit({"phase": "trainer_eval",
+          "config": "ModelConfig() full HDL-64 64x1800, TrainConfig(host_projection=False)",
+          "weights": WEIGHTS, "trained_epochs": meta.get("trained_epochs"),
+          "tree": dict(tree[2], points_per_scan=scan_points),
           "train": train, "checkpoint": checkpoint, "sequence_eval": sequence_eval, "card": card})
     return {"trainer": {"launches": train_launches, "per_call": per_step, "unit": "step",
                         "calls": TRAINER_BATCHES},
             "sequence_eval": {"launches": eval_launches, "per_call": per_batch_expected,
                               "unit": "batch", "calls": n_batches,
                               "max_abs_err": {k: max(v["max_abs_err"][k] for v in vs_plain.values())
-                                              for k in per_batch_expected}}}
+                                              for k in per_batch_expected}}}, train
 
 
 # ---- phase 8: SLAM over a rendered closed-loop drive ---------------------------
@@ -1536,6 +1611,285 @@ def slam_phase(ws, nbr, cfg, model, card, dev):
                      "pushes": n_push, "per_push": per_push}}
 
 
+# ---- phase 9: host projection ----------------------------------------------------
+
+
+def differing_pixels(a, b):
+    """Share of the pixels of two (B, H, W, 3) images that differ."""
+    import torch
+
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    return float(torch.any(a != b, dim=-1).float().mean())
+
+
+def host_ms(fn, reps):
+    """Median host-clock ms of ``reps`` calls (after one warm-up)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def projection_checks(cfg, scans, raw, dev):
+    """Phase 9b: the exact projections on the card against each other, the
+    CPU's and the native projector's, on the stream's scans (cropped) and
+    one B=8 train batch (cropped and perturbed by ``crop_and_augment``);
+    the fused host pass against the two-pass one; and their times."""
+    import torch
+
+    from efficientlo_net_torch.data import native_io
+    from efficientlo_net_torch.data.augmentation import mirror_batch
+    from efficientlo_net_torch.data.host_preprocess import augment_project_batch, crop_and_augment
+    from efficientlo_net_torch.ops.projection import project_to_range_image
+
+    s = cfg.sensor
+    h, w = s.height, s.width
+    clouds = np.stack(scans)
+    keep = np.any(clouds != 0, -1) & (np.linalg.norm(clouds[..., :2], axis=-1)
+                                      <= s.max_planar_radius)
+    pc1, pc2 = crop_and_augment(raw["pc1"], raw["pc2"], raw["T_trans"], raw["aug_frame"],
+                                s.max_planar_radius)
+    cases = {"stream_scans": (clouds * keep[..., None]).astype(np.float32),
+             "train_pc1": pc1, "train_pc2": pc2}
+    out = {}
+    for name, pts in cases.items():
+        card_pts = torch.as_tensor(pts, device=dev)
+        sort = project_to_range_image(card_pts, None, h, w, s)[0]
+        scatter = project_to_range_image(card_pts, None, h, w, s, method="scatter")[0]
+        check(torch.equal(sort, scatter), f"{name}: sort and scatter differ on the card")
+        cpu = project_to_range_image(torch.as_tensor(pts), None, h, w, s)[0]
+        native = native_io.project_batch(pts, h, w, s)
+        row = {"clouds": len(pts), "sort_equals_scatter": True,
+               "card_vs_cpu_sort": differing_pixels(sort, cpu),
+               "native_vs_card_sort": differing_pixels(native, sort)}
+        for k in ("card_vs_cpu_sort", "native_vs_card_sort"):
+            check(row[k] <= PROJECTION_PIXEL_FRAC, f"{name}: {k} differ on {row[k]} of the pixels")
+        out[name] = row
+    # the fused pass (with a deferred mirror) against mirror, crop_and_augment, project
+    mirrored = mirror_batch(raw, np.random.default_rng(SEED + 5))
+    deferred = mirror_batch(raw, np.random.default_rng(SEED + 5), clouds=False)
+    check("mirror_sign" in deferred, "the mirror flipped no sample")
+    fused = augment_project_batch(deferred, s)
+    m1, m2 = crop_and_augment(mirrored["pc1"], mirrored["pc2"], raw["T_trans"],
+                              raw["aug_frame"], s.max_planar_radius)
+    out["fused_vs_two_pass"] = {k: differing_pixels(fused[k], native_io.project_batch(m, h, w, s))
+                                for k, m in (("p1", m1), ("p2", m2))}
+    for k, v in out["fused_vs_two_pass"].items():
+        check(v <= PROJECTION_PIXEL_FRAC, f"fused {k} differs from two-pass on {v} of the pixels")
+
+    times = {}
+    for b, pts in (("B1", cases["stream_scans"][:1]), ("B8", pc1)):
+        card_pts = torch.as_tensor(pts, device=dev)
+        for method in ("packed", "sort", "scatter"):
+            times[f"card_{method}_{b}_ms"] = time_ms(
+                lambda: project_to_range_image(card_pts, None, h, w, s, method=method))[0]
+    for n in NATIVE_THREADS:
+        times[f"native_project_scan_{n}_threads_ms"] = host_ms(
+            lambda: native_io.project_scan(scans[0], h, w, s, crop_radius=s.max_planar_radius,
+                                           num_threads=n), reps=10)
+    times["augment_project_batch_B8_ms"] = host_ms(lambda: augment_project_batch(deferred, s),
+                                                   reps=5)
+    out["times"] = times
+    return out
+
+
+def host_stream_phase(ws, cfg, model, scans, device_poses, dev):
+    """Phase 9c: the host-projected stream over the stream phase's scans.
+    Returns its numbers and launches."""
+    from efficientlo_net_torch.evaluation.streaming import OdometryStream
+
+    stream = OdometryStream(model, cfg, device=dev, host_projection=True)
+    run_stream(stream, ws, scans[:2])  # warm-up outside the counted run
+    ws.reset_launches()
+    poses, times, per_push = run_stream(stream, ws, scans)
+    launches = dict(ws.launches)
+    expected = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES)}
+    for i, counts in enumerate(per_push):
+        check(counts == expected, f"host-projected push {i} launched {counts}, expected {expected}")
+    for q, t in poses:
+        check(np.all(np.isfinite(q)) and np.all(np.isfinite(t)), "non-finite pose")
+        check(abs(float(np.linalg.norm(q)) - 1.0) < 1e-3, f"|q| = {np.linalg.norm(q)}")
+    ms = statistics.median(times)
+    return {"pushes": len(scans), "launches_per_push": per_push[0],
+            "ms_per_push_median": ms, "ms_per_push_max": max(times), "frames_per_s": 1000.0 / ms,
+            "stage_ms_median": stage_times(stream, scans),
+            # not checked: the exact images differ from the packed ones by design
+            "q_max_abs_diff_vs_device_projected": max(
+                float(np.abs(a[0] - b[0]).max()) for a, b in zip(poses, device_poses)),
+            "t_max_abs_diff_vs_device_projected": max(
+                float(np.abs(a[1] - b[1]).max()) for a, b in zip(poses, device_poses))}, launches
+
+
+def host_train_phase(ws, nbr, cfg, tcfg, batches, dev):
+    """Phase 9d: the host-projected train step on the host-projected train
+    batches (2 warm-up, 10 timed), and the projected step fed the card's own
+    device-projected images against the device step.  Returns its numbers
+    and the timed run's launches."""
+    import torch
+
+    from efficientlo_net_torch.data.host_preprocess import augment_project_batch
+    from efficientlo_net_torch.training.step import _forward_inputs, make_train_step
+
+    projected = [augment_project_batch(b, cfg.sensor) for b in batches]
+    state, _ = fresh_train_state(cfg, tcfg, dev)
+    w0 = (state.w_x.item(), state.w_q.item())
+    step = make_train_step(cfg, tcfg, host_projected=True)
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    state, _ = run_train(ws, step, state, projected[1:], gen)  # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats(dev)
+    ws.reset_launches()
+    state, steps = run_train(ws, step, state, [projected[0]] * TRAIN_STEPS, gen)
+    launches = dict(ws.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0}
+    for i, st in enumerate(steps):
+        check(st["launches"] == expected, f"host-projected step {i} launched {st['launches']}")
+    check(state.w_x.item() != w0[0] and state.w_q.item() != w0[1], "w_x / w_q did not move")
+
+    raw = batches[0]
+    p1, p2, _, _ = _forward_inputs(raw, cfg.sensor, dev)
+    same_images = dict({k: raw[k] for k in ("T_gt", "T_trans", "T_trans_inv", "aug_frame")},
+                       p1=p1, p2=p2)
+    dev_run = one_step(ws, nbr, cfg, tcfg, raw, dev)
+    proj_run = one_step(ws, nbr, cfg, tcfg, same_images, dev, host_projected=True)
+    check(proj_run[3] == expected, f"the projected step launched {proj_run[3]}")
+    vs_device = compare_steps(proj_run, dev_run, ("projected step", "device step"))
+    times = [st["ms"] for st in steps]
+    ms = statistics.median(times)
+    return {"batch_size": tcfg.batch_size, "warmup_steps": TRAIN_WARMUP, "steps": len(steps),
+            "launches_per_step": steps[0]["launches"], "ms_per_step_median": ms,
+            "ms_per_step_max": max(times), "samples_per_s": tcfg.batch_size * 1000.0 / ms,
+            "stage_ms_median": {n: statistics.median(st["stage_ms"][n] for st in steps)
+                                for n in steps[0]["stage_ms"]},
+            "peak_memory_bytes": peak, "losses_fixed_batch": [st["losses"] for st in steps],
+            "w_x": [w0[0], state.w_x.item()], "w_q": [w0[1], state.w_q.item()],
+            "projected_vs_device_step": vs_device}, launches
+
+
+def busy_share(trace_file, step_name):
+    """The device's busy and idle share over a traced window, from the
+    Chrome trace's CUDA kernel intervals: the window runs from the start of
+    the second ``step_name`` range on the host (the first waits for the
+    loader's first batch) to the end of the last kernel; busy is the union
+    of the kernel intervals within it.  Also the top device operations by
+    summed kernel time."""
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    starts = sorted(e["ts"] for e in events
+                    if e.get("name") == step_name and e.get("cat") == "user_annotation")
+    kernels = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+               if e.get("cat") == "kernel"]
+    check(len(starts) >= 2 and kernels, f"the trace holds {len(starts)} '{step_name}' ranges "
+                                        f"and {len(kernels)} CUDA kernels")
+    begin, end = starts[1], max(k[1] for k in kernels)
+    busy, reach = 0.0, begin
+    for a, b, _ in sorted(kernels):
+        a, b = max(a, reach), min(b, end)
+        if b > a:
+            busy += b - a
+            reach = b
+    by_name = {}
+    for a, b, name in kernels:
+        if b > begin:
+            by_name[name] = by_name.get(name, 0.0) + (b - max(a, begin))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    share = busy / (end - begin)
+    return {"window_ms": (end - begin) / 1e3, "busy_ms": busy / 1e3, "busy_share": share,
+            "idle_share": 1.0 - share, "kernels": sum(1 for k in kernels if k[1] > begin),
+            "top_device_ops_ms": [[name, t / 1e3] for name, t in top],
+            "trace_bytes": os.path.getsize(trace_file)}
+
+
+def traced_steps(trainer, log_dir):
+    """TRACE_STEPS trainer steps (epoch 1, through the loader) under
+    ``utils.profiling.trace``, each step annotated; returns ``busy_share``
+    of the trace."""
+    import glob
+
+    import torch
+
+    from efficientlo_net_torch.utils.profiling import annotate, trace
+
+    step_fn = trainer.train_step
+
+    def annotated(state, batch, generator):
+        with annotate("train_step"):
+            return step_fn(state, batch, generator)
+
+    trainer.train_step = annotated
+    with trace(log_dir):
+        trainer.train_one_epoch(1, limit_batches=TRACE_STEPS)
+        torch.cuda.synchronize()
+    trainer.train_step = step_fn
+    (path,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    return busy_share(path, "train_step")
+
+
+def host_projection_phase(ws, nbr, cfg, tcfg, scans, device_poses, batches, tree, work,
+                          device_trainer, native_build, card, dev):
+    """Phase 9: the host-projected paths.  Returns their counted launches
+    for the kernels line."""
+    import dataclasses
+
+    from efficientlo_net_torch.data import native_io
+    from efficientlo_net_torch.pretrained import load_model
+
+    t0 = time.perf_counter()
+    # a. the native library, built in phase 2; no numpy fallback here
+    native = dict(native_build, abi=native_io.abi_version(), available=native_io.available(),
+                  fused_available=native_io.fused_available())
+    check(native["available"] and native["fused_available"] and native["abi"] == 3,
+          f"native library: {native}")
+    # b. projections
+    projection = projection_checks(cfg, scans, batches[0], dev)
+    # c. the host-projected stream
+    model, _ = load_model(WEIGHTS, cfg, device=dev)
+    stream, stream_launches = host_stream_phase(ws, cfg, model, scans, device_poses, dev)
+    del model
+    # d. the host-projected train step
+    step, step_launches = host_train_phase(ws, nbr, cfg, tcfg, batches, dev)
+    # e. the host-projected trainer over phase 7's tree
+    host_tcfg = dataclasses.replace(tcfg, host_projection=True)
+    trainer = make_trainer(cfg, host_tcfg, tree, os.path.join(work, "host"), dev)
+    check(trainer.host_projection, "the trainer does not project on the host")
+    trainer.load_pretrained(WEIGHTS)
+    train, trainer_launches = trainer_steps(ws, trainer, host_tcfg, dev)
+    # f. the device's idle share under the profiler, both trainers
+    other = make_trainer(cfg, tcfg, tree, os.path.join(work, "device"), dev)
+    other.load_pretrained(WEIGHTS)
+    idle = {"device_projected": traced_steps(other, os.path.join(work, "trace_device")),
+            "host_projected": traced_steps(trainer, os.path.join(work, "trace_host"))}
+    untraced = {"device_projected": device_trainer, "host_projected": train}
+    for name, v in idle.items():
+        check(0.0 <= v["busy_share"] <= 1.0 and 0.0 <= v["idle_share"] <= 1.0,
+              f"{name}: busy share {v['busy_share']}")
+        # the profiler slows the host, not the kernels: the traced kernel time
+        # of a step over the untraced step's time
+        v["busy_ms_per_step"] = v["busy_ms"] / (TRACE_STEPS - 1)
+        v["busy_share_of_untraced_step"] = (v["busy_ms_per_step"]
+                                            / untraced[name]["ms_per_step_median"])
+    per_step = {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0}
+    emit({"phase": "host_projection", "config": "ModelConfig() full HDL-64 64x1800",
+          "weights": WEIGHTS, "native": native, "projection": projection,
+          "stream": stream, "train_step": step,
+          "trainer": {"host_projected": train, "device_projected": device_trainer},
+          "idle": dict(idle, window=f"trainer steps 2-{TRACE_STEPS} of epoch 1 under "
+                                    "torch.profiler (CPU + CUDA activity)"),
+          "tolerance": {"pixel_frac": PROJECTION_PIXEL_FRAC},
+          "seconds": time.perf_counter() - t0, "card": card})
+    return {"host_stream": {"launches": stream_launches,
+                            "per_call": {"window_select": len(SELECT_SITES),
+                                         "select_and_group": len(GROUP_SITES)},
+                            "unit": "push", "calls": len(scans)},
+            "host_train_step": {"launches": step_launches, "per_call": per_step, "unit": "step",
+                                "calls": TRAIN_STEPS},
+            "host_trainer": {"launches": trainer_launches, "per_call": per_step, "unit": "step",
+                             "calls": TRAINER_BATCHES}}
+
+
 def main():
     import torch
 
@@ -1544,7 +1898,11 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
+    import concurrent.futures
+    import tempfile
+
     from efficientlo_net_torch.config import ModelConfig, TrainConfig
+    from efficientlo_net_torch.data import native_io
     from efficientlo_net_torch.evaluation.streaming import OdometryStream
     from efficientlo_net_torch.ops import cuda_build
     from efficientlo_net_torch.ops import neighbors as nbr
@@ -1561,13 +1919,22 @@ def main():
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
-    # ---- 2. build ------------------------------------------------------------
+    # ---- 2. build: the CUDA kernels and, beside them, the native library -------
+    def timed_native_build():
+        t = time.perf_counter()
+        built = native_io.build()
+        return {"library": built.name, "compiler": native_io.compiler(),
+                "seconds": time.perf_counter() - t}
+
     t0 = time.perf_counter()
-    cuda_build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native_future = pool.submit(timed_native_build)
+        cuda_build.build()
+        native_build = native_future.result()
     ptxas = {src: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for src, log in cuda_build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": list(cuda_build.SOURCES), "ptxas": ptxas})
+          "sources": list(cuda_build.SOURCES), "ptxas": ptxas, "native": native_build})
 
     # ---- 3.-4. stream kernels, stream ------------------------------------------
     cfg = ModelConfig()
@@ -1575,21 +1942,29 @@ def main():
     stream = OdometryStream(model, cfg, device="cuda")
     scans = make_scans(cfg.sensor, N_SCANS)
     stream_sites = kernel_phase(ws, nbr, stream, scans)
-    stream_launches = stream_phase(ws, nbr, stream, scans, meta, card)
+    stream_launches, stream_poses = stream_phase(ws, nbr, stream, scans, meta, card)
     del stream, model
 
     # ---- 5.-6. train kernels, train -------------------------------------------
     dev = torch.device("cuda")
-    tcfg = TrainConfig()
+    # device projection, as before host projection became the default where
+    # the native library loads; phase 9 runs the host-projected paths
+    tcfg = TrainConfig(host_projection=False)
     batches = train_batches(cfg.sensor, tcfg.batch_size)
     train_sites = train_kernel_phase(ws, nbr, cfg, tcfg, batches[0], dev)
     train_launches = train_phase(ws, nbr, cfg, tcfg, batches, card, dev)
 
-    # ---- 7.-9. trainer and sequence eval, SLAM, kernels line -------------------
-    counted = trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev)
-    model, _ = load_model(WEIGHTS, cfg, device="cuda")
-    counted.update(slam_phase(ws, nbr, cfg, model, card, dev))
-    del model
+    # ---- 7.-10. trainer and sequence eval, SLAM, host projection, kernels line --
+    with tempfile.TemporaryDirectory() as work:
+        tree = kitti_tree(cfg, work)
+        counted, device_trainer = trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev, tree,
+                                                     os.path.join(work, "log"))
+        model, _ = load_model(WEIGHTS, cfg, device="cuda")
+        counted.update(slam_phase(ws, nbr, cfg, model, card, dev))
+        del model
+        counted.update(host_projection_phase(ws, nbr, cfg, tcfg, scans, stream_poses, batches,
+                                             tree, work, device_trainer, native_build, card,
+                                             dev))
     emit(kernels_line({"stream": (stream_sites, stream_launches),
                        "train": (train_sites, train_launches)}, counted, card))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

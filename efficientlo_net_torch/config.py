@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,9 +138,7 @@ def tiny_model_config(height: int = 16, width: int = 128, num_points: int = 2048
 class TrainConfig:
     """Optimization hyperparameters, the port's copy of the JAX package's
     ``TrainConfig`` (same defaults).  The schedules are in
-    ``training/state.py``.  There is no ``host_projection`` yet: the port's
-    trainer projects on the device, as the JAX package does with
-    ``host_projection=False``."""
+    ``training/state.py``."""
 
     batch_size: int = 8
     base_learning_rate: float = 1e-3
@@ -165,6 +163,23 @@ class TrainConfig:
     # sends clouds at 1.25 mm steps, half the host-to-device bytes.
     quantized_transfer: bool = False
 
+    # Host-projected training (data/host_preprocess.py): the loader's
+    # workers crop, perturb and project on the CPU with the native
+    # projector, and the step takes dense range images.  None = auto: on
+    # whenever the native library loads (resolved_host_projection).
+    host_projection: Optional[bool] = None
+
     # Decoded-scan RAM cache of the training dataset (data/kitti.py): each
     # scan is read twice an epoch (frame t of one pair, t-1 of the next).
     cache_decoded_scans: bool = True
+
+    def resolved_host_projection(self) -> bool:
+        """``host_projection``, with None resolved to whether the native
+        library is available.  That asks ``data.native_io.available()``,
+        which builds the library with the host compiler on its first call
+        (a few seconds) and raises if a present compiler fails."""
+        if self.host_projection is not None:
+            return self.host_projection
+        from .data import native_io
+
+        return native_io.available()

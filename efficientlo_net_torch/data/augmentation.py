@@ -43,12 +43,17 @@ def random_se3(rng: np.random.Generator) -> np.ndarray:
 _MIRROR4 = np.diag([1.0, -1.0, 1.0, 1.0]).astype(np.float32)
 
 
-def mirror_batch(batch: dict, rng: np.random.Generator) -> dict:
+def mirror_batch(batch: dict, rng: np.random.Generator, clouds: bool = True) -> dict:
     """Reflect about half the samples across the x-z plane (y -> -y) and
     conjugate their ground truth, ``T' = M T M``, which keeps each pair
     aligned.  Driving data turns one way more than the other; the reflection
-    makes the yaw distribution the network sees symmetric.  (The JAX
-    package's ``clouds=False`` mode, for host projection, is not ported.)"""
+    makes the yaw distribution the network sees symmetric.
+
+    With ``clouds=False`` the clouds stay as they are and the per-sample
+    sign comes back as ``batch["mirror_sign"]``: the host-projected loader
+    folds the reflection into the fused native pass
+    (``host_preprocess.augment_project_batch``).  The random draw is the
+    same in both modes, so both pipelines see the same samples."""
     pc1, pc2, T_gt = batch["pc1"], batch["pc2"], batch["T_gt"]
     flip = rng.random(len(pc1)) < 0.5
     if not np.any(flip):
@@ -56,6 +61,8 @@ def mirror_batch(batch: dict, rng: np.random.Generator) -> dict:
     sign = np.where(flip, -1.0, 1.0).astype(pc1.dtype)
     T_gt = T_gt.copy()
     T_gt[flip] = _MIRROR4 @ T_gt[flip] @ _MIRROR4
+    if not clouds:
+        return dict(batch, T_gt=T_gt.astype(np.float32), mirror_sign=sign)
     pc1 = pc1.copy()
     pc2 = pc2.copy()
     pc1[..., 1] *= sign[:, None]

@@ -13,7 +13,8 @@ The port's copy of ``efficientlo_net_tpu/data/kitti.py``:
 * sequences 11-21, which have no ground truth, get the identity.
 
 ``pc1`` downstream is the later frame t, ``pc2`` frame t-1.  Scans are read
-with numpy (the JAX package's native reader gives the same arrays).
+through ``data/native_io.py`` (the native reader, or its numpy twin), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from functools import lru_cache
 from typing import Optional, Tuple
 
 import numpy as np
+
+from . import native_io
 
 SEQ_LENGTH_TABLE = [
     0, 4541, 5642, 10303, 11104, 11375, 14136, 15237, 16338, 20409, 22000,
@@ -70,15 +73,6 @@ def load_tr(calib_path: str) -> Tuple[np.ndarray, np.ndarray]:
     return tr, np.linalg.inv(tr)
 
 
-def read_scan_file(path: str, num_points: int) -> np.ndarray:
-    """A ``velodyne/*.bin`` scan (float32 N x 4) as (num_points, 3) float32,
-    truncated or zero-padded."""
-    pts = np.fromfile(path, dtype=np.float32).reshape(-1, 4)[:, :3]
-    out = np.zeros((num_points, 3), dtype=np.float32)
-    out[: min(len(pts), num_points)] = pts[:num_points]
-    return out
-
-
 class OdometryDataset:
     """Maps a global frame index to a (pc1, pc2, T_gt) training pair.
     ``cache_scans`` keeps every decoded scan in host memory (read-only, shared
@@ -122,7 +116,7 @@ class OdometryDataset:
             if hit is not None:
                 return hit
         path = os.path.join(self.root, SEQ_NAMES[seq], "velodyne", f"{frame:06d}.bin")
-        scan = read_scan_file(path, self.num_points)
+        scan = native_io.read_scan(path, self.num_points)
         if self.cache_scans:
             scan.setflags(write=False)
             self._scan_cache[(seq, frame)] = scan

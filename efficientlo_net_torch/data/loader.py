@@ -1,9 +1,11 @@
 """Batches of dataset pairs: the threaded prefetching loader, the
 host-to-device step and int16 point transfer.
 
-The port's copy of ``efficientlo_net_tpu/data/loader.py`` (device projection
-only): worker threads read scans and draw the augmentation while the device
-computes, into a bounded queue, and batches come out in order.  Every batch
+The port's copy of ``efficientlo_net_tpu/data/loader.py``: worker threads
+read scans and draw the augmentation (and, for host-projected training,
+crop, perturb and project each pair with the native projector) while the
+device computes, into a bounded queue, and batches come out in order.  The
+native calls release the GIL, so the workers project in parallel.  Every batch
 draws from its own generator, ``default_rng([seed, epoch, batch])``, and the
 epoch's shuffle from ``default_rng([seed, epoch])``, so a seed gives the JAX
 package's batches exactly.  ``to_device`` is the port's host-to-device step;
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from .augmentation import augmentation_batch, mirror_batch
+from .host_preprocess import augment_project_batch
 from .kitti import OdometryDataset
 
 POINT_QUANT_SCALE = 800.0  # 1.25 mm steps, range ±40.9 m
@@ -35,9 +38,11 @@ def quantize_points(x: np.ndarray) -> np.ndarray:
 
 
 def make_batch(dataset: OdometryDataset, indices: Sequence[int], rng: np.random.Generator,
-               training: bool) -> dict:
+               training: bool, mirror_clouds: bool = True) -> dict:
     """The pairs at ``indices`` stacked, with their augmentation fields; in
-    training, about half of them mirrored (``mirror_batch``)."""
+    training, about half of them mirrored (``mirror_batch``).  With
+    ``mirror_clouds=False`` the clouds stay unmirrored and the batch carries
+    ``mirror_sign`` for the host projector."""
     pc1, pc2, T_gt = zip(*(dataset[int(i)] for i in indices))
     T_trans, T_trans_inv, aug_frame = augmentation_batch(rng, len(indices), training)
     batch = {
@@ -49,7 +54,7 @@ def make_batch(dataset: OdometryDataset, indices: Sequence[int], rng: np.random.
         "aug_frame": aug_frame,
     }
     if training:
-        batch = mirror_batch(batch, rng)
+        batch = mirror_batch(batch, rng, clouds=mirror_clouds)
     return batch
 
 
@@ -92,14 +97,17 @@ def device_prefetch(iterator, prepare, depth: int = 2):
 
 class PrefetchLoader:
     """Batches of dataset indices, made by worker threads into a bounded
-    queue and yielded in order.  Deterministic given ``seed``.
-    ``transform``, when given, maps each batch in the worker that made it
-    (the trainer's int16 quantization and pinned staging), off the
-    consumer's thread."""
+    queue and yielded in order.  Deterministic given ``seed``.  With
+    ``host_projection_sensor`` (a ``SensorConfig``) the workers emit
+    host-projected batches (``host_preprocess.augment_project_batch``:
+    images ``p1`` / ``p2`` in place of the clouds).  ``transform``, when
+    given, then maps each batch in the worker that made it (the trainer's
+    int16 quantization and pinned staging), off the consumer's thread."""
 
     def __init__(self, dataset: OdometryDataset, indices: Sequence[int], batch_size: int,
                  training: bool, seed: int = 0, num_workers: int = 4, prefetch: int = 8,
-                 drop_last: bool = True, transform: Optional[Callable[[dict], dict]] = None):
+                 drop_last: bool = True, transform: Optional[Callable[[dict], dict]] = None,
+                 host_projection_sensor=None):
         self.dataset = dataset
         self.indices = np.asarray(indices)
         self.batch_size = batch_size
@@ -109,6 +117,7 @@ class PrefetchLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.transform = transform
+        self.host_projection_sensor = host_projection_sensor
 
     def __len__(self) -> int:
         n = len(self.indices)
@@ -136,8 +145,12 @@ class PrefetchLoader:
                 except queue.Empty:
                     return
                 brng = np.random.default_rng([self.seed, epoch, bi])
+                host_proj = self.host_projection_sensor is not None
                 try:
-                    batch = make_batch(self.dataset, idxs, brng, self.training)
+                    batch = make_batch(self.dataset, idxs, brng, self.training,
+                                       mirror_clouds=not host_proj)
+                    if host_proj:
+                        batch = augment_project_batch(batch, self.host_projection_sensor)
                     if self.transform is not None:
                         batch = self.transform(batch)
                 except Exception as exc:  # raised by the consumer, in order

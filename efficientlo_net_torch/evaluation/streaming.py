@@ -1,7 +1,7 @@
 """Streaming odometry inference: one new scan per step.
 
-Port of ``OdometryStream`` from ``efficientlo_net_tpu/evaluation/streaming.py``
-(device projection), with the loop-closure measurement ``measure_relative``.
+Port of ``OdometryStream`` from ``efficientlo_net_tpu/evaluation/streaming.py``,
+with the loop-closure measurement ``measure_relative`` and host projection.
 Each scan pairs with the previous one, whose range
 image and feature pyramid were computed when it arrived, so the steady-state
 cost per frame is one projection, ONE feature tower and the correlation /
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..data import native_io
 from ..device import resolve_device
 from ..ops.projection import crop_and_project
 from .odometry import quat_to_mat_np
@@ -23,11 +24,22 @@ from .odometry import quat_to_mat_np
 class OdometryStream:
     """Emits the relative pose (q, t) of each pushed scan w.r.t. the
     previous one.  ``model`` is a ``PWCLONet`` with its weights loaded; the
-    stream moves it to ``device`` and puts it in eval mode."""
+    stream moves it to ``device`` and puts it in eval mode.
 
-    def __init__(self, model, cfg: ModelConfig, device="cuda"):
+    ``host_projection=True`` crops and projects each scan on the CPU with
+    the native projector (``data/native_io.py``, exact: the nearest point
+    per pixel) and copies the dense image to the device, in place of the
+    device's packed projection of the raw points.  Unlike the JAX package,
+    which then falls back to device projection without the native library,
+    the port raises: a stream that says it projects on the host does so."""
+
+    def __init__(self, model, cfg: ModelConfig, device="cuda", host_projection: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if host_projection and not native_io.available():
+            raise RuntimeError("host_projection=True needs the native library "
+                               "(native/lidar_io.cpp and a host C++ compiler)")
+        self.host_projection = host_projection
         self.model = model.to(self.device).eval()
         self._prev = None
         #: (1, H, W, 3) range image of the most recent pushed scan
@@ -40,6 +52,18 @@ class OdometryStream:
         """(B, N, 3) raw points -> (B, H, W, 3) range image, after the
         validity mask and the planar crop the network was trained with."""
         return crop_and_project(points, self.cfg.sensor)
+
+    def project_scan(self, points: np.ndarray) -> torch.Tensor:
+        """One raw scan (N, 3) -> its (1, H, W, 3) range image on the
+        device: projected on the host with ``host_projection``, else copied
+        and projected on the device."""
+        points = np.ascontiguousarray(points, dtype=np.float32)
+        if self.host_projection:
+            s = self.cfg.sensor
+            img = native_io.project_scan(points, s.height, s.width, s,
+                                         crop_radius=s.max_planar_radius)
+            return torch.from_numpy(img[None]).to(self.device)
+        return self.project(torch.as_tensor(points, device=self.device)[None])
 
     def _warp_project(self, img: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         """Rigidly move a (1, H, W, 3) range image's valid points by the
@@ -98,8 +122,7 @@ class OdometryStream:
         """points: (N, 3) new scan.  Returns (q (4,), t (3,)) numpy: the pose
         of this frame w.r.t. the previous one (the first frame pairs with
         itself)."""
-        pts = torch.as_tensor(np.asarray(points, dtype=np.float32), device=self.device)
-        proj = self.project(pts[None])
+        proj = self.project_scan(points)
         pyr = self.model._pyramid(proj)
         prev = pyr if self._prev is None else self._prev
         out = self.model.forward_from_pyramids(pyr, prev)

@@ -234,7 +234,7 @@ class PWCLONet(nn.Module):
             # safe.  Gradients flow through the gather of the winners into
             # the coarser level's (q, t).
             xyz_warp_proj, feat_warp_proj = project_to_range_image(
-                warped, feat1, hl, wl, cfg.sensor
+                warped, feat1, hl, wl, cfg.sensor, method="packed"
             )
             feat_warp = feat_warp_proj.reshape(b, hl * wl, -1)
             mask_warp = valid_mask_from_xyz(xyz_warp_proj.reshape(b, hl * wl, 3))

@@ -1,9 +1,10 @@
 """Train and eval steps.
 
-Port of ``efficientlo_net_tpu/training/step.py`` (device projection): one
-step preprocesses and projects both frames on the device, runs the network
-with its two towers, takes the multi-level loss, back-propagates and updates
-the network and the loss weights.  PyTorch runs it eagerly; the JAX package
+Port of ``efficientlo_net_tpu/training/step.py``: one step preprocesses and
+projects both frames on the device (or, host-projected, takes the images
+the loader projected), runs the network with its two towers, takes the
+multi-level loss, back-propagates and updates the network and the loss
+weights.  PyTorch runs it eagerly; the JAX package
 jits it into one program.  ``make_streaming_eval_fns`` splits the eval step
 into a per-frame encoder and a per-pair correlation, for sequence
 evaluation.
@@ -19,16 +20,17 @@ import torch
 from ..config import ModelConfig, SensorConfig, TrainConfig
 from ..data.loader import POINT_QUANT_SCALE
 from ..models.losses import total_loss
-from ..models.preprocess import preprocess
+from ..models.preprocess import gt_quat, preprocess
 from ..ops.projection import crop_and_project, project_to_range_image
 from .state import TrainState, bn_momentum_schedule, lr_schedule
 
 BATCH_KEYS = ("pc1", "pc2", "T_gt", "T_trans", "T_trans_inv", "aug_frame")
+PROJECTED_KEYS = ("p1", "p2", "T_gt", "T_trans", "T_trans_inv", "aug_frame")
 
 
 def dequantize(points: torch.Tensor) -> torch.Tensor:
-    """int16 clouds (quantized transfer) to float32 metres; float clouds
-    pass through."""
+    """int16 clouds or images (quantized transfer) to float32 metres; float
+    ones pass through."""
     if points.is_floating_point():
         return points
     return points.to(torch.float32) * float(np.float32(1.0 / POINT_QUANT_SCALE))
@@ -46,17 +48,29 @@ def _forward_inputs(batch: Dict, sensor: SensorConfig, device):
     )
     h, w = sensor.height, sensor.width
     # packed is safe here: preprocess() has already cropped to <= 35 m
-    p1, _ = project_to_range_image(pc1, None, h, w, sensor)
-    p2, _ = project_to_range_image(pc2, None, h, w, sensor)
+    p1, _ = project_to_range_image(pc1, None, h, w, sensor, method="packed")
+    p2, _ = project_to_range_image(pc2, None, h, w, sensor, method="packed")
     return p1.detach(), p2.detach(), q_gt, t_gt
 
 
-def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
+def _forward_inputs_projected(batch: Dict, device):
+    """Inputs of the host-projected step (``data/host_preprocess.py``): the
+    images (B, H, W, 3) arrive cropped, perturbed and projected; int16
+    images (quantized transfer) are dequantized, and only the ground truth
+    is derived here, on ``device``.  The images carry no gradient."""
+    b = {k: torch.as_tensor(batch[k], device=device) for k in PROJECTED_KEYS}
+    p1, p2 = dequantize(b["p1"]), dequantize(b["p2"])
+    q_gt, t_gt = gt_quat(b["T_gt"], b["T_trans"], b["T_trans_inv"], b["aug_frame"])
+    return p1.detach(), p2.detach(), q_gt, t_gt
+
+
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, host_projected: bool = False):
     """Returns ``train_step(state, batch, generator, stage=None) -> (state,
     metrics)``: one update of ``state`` (in place) on ``batch`` (numpy
-    arrays or tensors, ``BATCH_KEYS``).  ``generator`` (a ``torch.Generator``
-    on the state's device) draws the dropout masks and the scan
-    permutations of every first-K select.  ``stage(name)``, if given, is
+    arrays or tensors, ``BATCH_KEYS``; with ``host_projected``, the
+    loader's projected batch, ``PROJECTED_KEYS``).  ``generator`` (a
+    ``torch.Generator`` on the state's device) draws the dropout masks and
+    the scan permutations of every first-K select.  ``stage(name)``, if given, is
     called after each of "inputs", "forward", "backward" and "optimizer"."""
     lr_at = lr_schedule(train_cfg)
     bn_at = bn_momentum_schedule(train_cfg)
@@ -66,7 +80,10 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
         mark = stage or (lambda name: None)
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        p1, p2, q_gt, t_gt = _forward_inputs(batch, model_cfg.sensor, state.device)
+        if host_projected:
+            p1, p2, q_gt, t_gt = _forward_inputs_projected(batch, state.device)
+        else:
+            p1, p2, q_gt, t_gt = _forward_inputs(batch, model_cfg.sensor, state.device)
         mark("inputs")
         # the decay as a float32 scalar, as the JAX package traces it
         bn_momentum = torch.tensor(bn_at(state.step), dtype=torch.float32, device=state.device)

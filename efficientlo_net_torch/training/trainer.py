@@ -5,11 +5,14 @@ The port's copy of ``efficientlo_net_tpu/training/trainer.py``, on one
 device (``device=`` in place of the JAX package's ``use_mesh``).  Batches
 come from ``PrefetchLoader``, whose workers also quantize (with
 ``quantized_transfer``) and, for a CUDA device, stage each batch in pinned
-memory, through ``device_prefetch``; the device projects the clouds (the
-JAX package's ``host_projection=False``).  Each epoch's dropout masks and
-scan orders come from one ``torch.Generator`` on the state's device,
-seeded from ``SeedSequence([seed, epoch])``, so a restored run continues
-as the uninterrupted one would.
+memory, through ``device_prefetch``.  With host projection
+(``TrainConfig.resolved_host_projection()``: by default, whenever the
+native library loads) the workers also crop, perturb and project each
+pair, and the step takes the images; otherwise the device projects the
+clouds.  Validation always projects on the device.  Each epoch's dropout
+masks and scan orders come from one ``torch.Generator`` on the state's
+device, seeded from ``SeedSequence([seed, epoch])``, so a restored run
+continues as the uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -75,7 +78,9 @@ class Trainer:
             model = PWCLONet(model_cfg)
         self.state = create_train_state(model, train_cfg, device=self.device)
         self.ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"))
-        self.train_step = make_train_step(model_cfg, train_cfg)
+        self.host_projection = train_cfg.resolved_host_projection()
+        self.train_step = make_train_step(model_cfg, train_cfg,
+                                          host_projected=self.host_projection)
         self.eval_step = make_eval_step(model_cfg)
         self.stream_eval_fns = make_streaming_eval_fns(model_cfg)
 
@@ -103,11 +108,12 @@ class Trainer:
         return meta
 
     def _host_batch(self, batch: dict) -> dict:
-        """The loader workers' last step: int16 clouds with
-        ``quantized_transfer``; pinned tensors for a CUDA device."""
+        """The loader workers' last step: int16 clouds (or, host-projected,
+        images) with ``quantized_transfer``; pinned tensors for a CUDA
+        device."""
         if self.train_cfg.quantized_transfer:
-            batch = dict(batch, pc1=quantize_points(batch["pc1"]),
-                         pc2=quantize_points(batch["pc2"]))
+            keys = ("p1", "p2") if self.host_projection else ("pc1", "pc2")
+            batch = dict(batch, **{k: quantize_points(batch[k]) for k in keys})
         return pin_batch(batch) if self.device.type == "cuda" else batch
 
     def train_one_epoch(self, epoch: int, limit_batches: Optional[int] = None) -> float:
@@ -116,7 +122,9 @@ class Trainer:
         batches."""
         loader = PrefetchLoader(self.dataset, train_indices_for(self.train_list),
                                 self.train_cfg.batch_size, training=True, seed=self.seed,
-                                transform=self._host_batch)
+                                transform=self._host_batch,
+                                host_projection_sensor=(self.model_cfg.sensor
+                                                        if self.host_projection else None))
         lr_at = lr_schedule(self.train_cfg)
         bn_at = bn_momentum_schedule(self.train_cfg)
         epoch_seed = np.random.SeedSequence([self.seed, epoch]).generate_state(1)[0]

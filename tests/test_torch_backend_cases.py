@@ -270,7 +270,7 @@ def boxy_scene(rng, n=8192):
 
 def project(points):
     img, _ = project_to_range_image(torch.as_tensor(points, dtype=torch.float32)[None], None,
-                                    SENSOR.height, SENSOR.width, SENSOR)
+                                    SENSOR.height, SENSOR.width, SENSOR, method="packed")
     return img[0]
 
 

@@ -268,8 +268,8 @@ def test_fit_validation_cadence(tree, tmp_path, monkeypatch):
 
 
 def test_quantized_transfer_batches_arrive_as_int16(tree, tmp_path):
-    trainer = _trainer(tree, tmp_path / "log", tcfg=dataclasses.replace(TCFG,
-                                                                         quantized_transfer=True))
+    trainer = _trainer(tree, tmp_path / "log", tcfg=dataclasses.replace(
+        TCFG, quantized_transfer=True, host_projection=False))  # the clouds' transfer
     seen = []
     step = trainer.train_step
     trainer.train_step = lambda state, batch, gen: (seen.append(batch), step(state, batch, gen))[1]

@@ -168,7 +168,7 @@ def test_window_select_at_train_down_l0_geometry(dev):
     s = SensorConfig()
     rng = np.random.default_rng(14)
     pts = torch.as_tensor(np.stack([synthetic_pair(rng, s)[0] for _ in range(8)])).to(dev)
-    grid, _ = project_to_range_image(pts, None, s.height, s.width, s)
+    grid, _ = project_to_range_image(pts, None, s.height, s.width, s, method="packed")
     perm = torch.randperm(135, device=dev, generator=torch.Generator(dev).manual_seed(0))
     args = (grid, grid, (9, 15), 32, 0.5, (4, 8), (1, 1), "first_k", perm)
     (idx, mask), counts = _count(lambda: nbr.select_neighbors(*args))

@@ -58,8 +58,8 @@ def test_quaternion_ops_match_jax(name):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6, rtol=1e-6)
 
 
-def _boundary_points(points, height, width, sensor):
-    """Per point: is its JAX column or row coordinate within 1e-4 of an
+def _boundary_points(points, height, width, sensor, tol=1e-4):
+    """Per point: is its JAX column or row coordinate within ``tol`` of an
     integer (a pixel boundary, where backends may truncate differently)?"""
     p = points.astype(np.float64)
     az_res = 2.0 * math.pi / width
@@ -71,7 +71,7 @@ def _boundary_points(points, height, width, sensor):
     row = np.arcsin(np.clip(p[..., 2] / np.maximum(r, 1e-12), -1, 1)) / v_res - down / v_res
 
     def near(x):
-        return np.abs(x - np.round(x)) < 1e-4
+        return np.abs(x - np.round(x)) < tol
 
     return near(col) | near(row)
 
@@ -85,7 +85,8 @@ def test_packed_projection_matches_jax(height, width, n):
     js, ts = JSensor(height=height, width=width), TSensor(height=height, width=width)
     j_img, j_feat = j_project(jnp.asarray(pts), jnp.asarray(feats), height, width, js,
                               method="packed")
-    t_img, t_feat = TP.project_to_range_image(t(pts), t(feats), height, width, ts)
+    t_img, t_feat = TP.project_to_range_image(t(pts), t(feats), height, width, ts,
+                                              method="packed")
     j_img, j_feat = np.asarray(j_img), np.asarray(j_feat)
     t_img, t_feat = t_img.numpy(), t_feat.numpy()
     differs = np.any(j_img != t_img, axis=-1) | np.any(j_feat != t_feat, axis=-1)
@@ -107,7 +108,8 @@ def test_pixel_coords_truncate_toward_zero():
 
 def test_projection_refuses_too_many_points():
     with pytest.raises(ValueError):
-        TP.project_to_range_image(torch.zeros(1, 1 << 18, 3), None, 4, 8, TSensor())
+        TP.project_to_range_image(torch.zeros(1, 1 << 18, 3), None, 4, 8, TSensor(),
+                                  method="packed")
 
 
 @pytest.mark.parametrize("mode,with_perm", MODES)

@@ -310,7 +310,8 @@ def test_closure_icp_polish_and_gate():
         local = (world - pose[:3, 3]) @ pose[:3, :3]
         local = local[np.linalg.norm(local[:, :2], axis=1) < 12.0]
         img, _ = project_to_range_image(torch.as_tensor(local, dtype=torch.float32)[None], None,
-                                        sensor.height, sensor.width, sensor)
+                                        sensor.height, sensor.width, sensor,
+                                        method="packed")
         return img[0].numpy()
 
     t_true = np.eye(4)
