@@ -8,8 +8,10 @@ the port's main paths at the full HDL-64 width (64x1800 range images of
 150k-point scans), from the 50-epoch weights in
 ``pretrained/synthetic_drive_50ep.msgpack``: eval-mode streaming odometry,
 the train step at ``TrainConfig().batch_size`` = 8, the trainer with
-sequence evaluation, SLAM with loop closures, and the host-projected
-stream, train step and trainer.  Phases, each printing JSON lines:
+sequence evaluation, SLAM with loop closures, the host-projected
+stream, train step and trainer, the bfloat16 stream and train step, the
+``torch.export`` artifact, the weight writer and both CLIs.  Phases, each
+printing JSON lines:
 
 1. device: the card (and its ``nvidia-smi`` name and power limit); TF32 is
    switched off for matmuls and convolutions, so float32 stays float32;
@@ -21,8 +23,10 @@ stream, train step and trainer.  Phases, each printing JSON lines:
    equal exactly, and each centre's grouped (xyz, feature) rows exactly, as
    multisets; plus one FIRST_K case with a random scan permutation per
    kernel.  Each call site is timed beside its bound: back-to-back calls
-   (CUDA events, median; and the host's time to make the calls), and the
-   kernel alone (the replay of a CUDA graph that captured the calls);
+   (CUDA events, median; and the host's time to make the calls) of the
+   wrapper and of its ``efficientlo::`` operator, which every call site of
+   the port goes through, and the kernel alone (the replay of a CUDA graph
+   that captured the calls);
 4. stream: ~10 scans pushed through ``OdometryStream(device="cuda")``; every
    push must launch ``window_select`` 14 times and ``select_and_group`` 5
    times; poses must be finite with unit quaternions and match the same
@@ -110,7 +114,29 @@ stream, train step and trainer.  Phases, each printing JSON lines:
    TRACE_STEPS steps of a device-projected and of the host-projected
    trainer: the device's busy and idle share over the window (the union
    of its CUDA kernel intervals) and its top operations;
-10. the ``kernels`` line (each kernel's launches, times and bound, per path
+10. bfloat16 and serving, at the full config: (a) the stream's scans
+   through ``OdometryStream`` with ``compute_dtype="bfloat16"``: 14 + 5
+   launches a push, finite poses with unit quaternions within
+   ``BF16_*_BOUND`` of phase 4's float32 poses, one push's select calls
+   replayed through kernel and plain version as in phase 3 (the features
+   reaching ``select_and_group`` must be float32); ms per push beside phase
+   4's; (b) the bfloat16 train step on phase 6's batches, 2 warm-up and 10
+   timed: 23 + 0 launches a step, float32 loss, gradients, parameters and
+   Adam moments; ms per step, stage ms and peak memory beside phase 6's;
+   (c) ``serving.export.export_odometry(device="cuda")`` at B=1, saved and
+   loaded: the artifact's (q, t) within ``EXPORT_ATOL`` of
+   ``make_infer_fn``'s on two scans, 14 + 5 launches a call; export s, file
+   bytes, ms per call of both; (d) ``save_pretrained`` of phase 7's trained
+   state, read back by ``load_model``: tensors and the forward on one pair
+   bit-equal; (e) ``cli.main`` in test mode over phase 7's tree with the
+   weights (d) wrote, whose t_rel must be within ``CLI_T_REL_ATOL`` of phase
+   7's ``validate()``, then ``evaluate_cli.main`` over its trajectory;
+   (f) float32 against bfloat16 under ``torch.profiler``: PROFILED_CALLS
+   pushes of a stream and PROFILED_CALLS B=8 train steps of each, after 2
+   warm-up calls: CUDA kernels and kernel ms per call, and the host
+   operators with the most self CPU time per call (the profiler's own cost
+   inflates them: read them for their ranking);
+11. the ``kernels`` line (each kernel's launches, times and bound, per path
    and summed), the total seconds, then the card line, then the result
    line.
 
@@ -234,6 +260,17 @@ NORMAL_ATOL = 1e-4
 PROJECTION_PIXEL_FRAC = 1e-3
 NATIVE_THREADS = (1, 4, 8)
 TRACE_STEPS = 4  # trainer steps traced; the window starts at the second
+# Phase 10.  bfloat16 against float32 poses: the bounds of the JAX package's
+# tests/test_bf16.py.  The exported artifact runs the same operations and
+# kernels as make_infer_fn, in the same order: STREAM_ATOL's reasoning.  The
+# CLI scores the weights phase 7 validated, through the same streaming
+# eval at the same batch size.
+BF16_Q_BOUND = 0.2
+BF16_T_BOUND = 0.5
+EXPORT_ATOL = 1e-5
+CLI_T_REL_ATOL = 1e-4
+PROFILED_CALLS = 3
+TOP_HOST_OPS = 12
 
 
 class SmokeFailure(RuntimeError):
@@ -416,13 +453,14 @@ def select_site_row(ws, nbr, site, args):
     version, then timed beside its bound."""
     idx, mask, same = check_select_site(ws, nbr, args)
     ms, host_ms = time_ms(lambda: ws.window_select(*args))
+    op_ms, op_host_ms = time_ms(lambda: ws.window_select_op(*args))
     device_ms = graph_ms(lambda: ws.window_select(*args))
     plain_ms, _ = time_ms(lambda: nbr.select_neighbors_plain(*args))
     b_ms, b_by = bound(select_bytes(args, idx, mask),
                        FLOPS_PER_CANDIDATE * examined(nbr, args, group=False))
-    return dict(site=site, **describe(args, False), ms=ms, host_ms=host_ms,
-                device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=0.0, same_order=same)
+    return dict(site=site, **describe(args, False), ms=ms, host_ms=host_ms, op_ms=op_ms,
+                op_host_ms=op_host_ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=0.0, same_order=same)
 
 
 def check_select_site(ws, nbr, args):
@@ -500,14 +538,15 @@ def kernel_phase(ws, nbr, stream, scans):
     for site, args in zip(GROUP_SITES, calls["select_and_group"]):
         outs, err, same = check_group_site(ws, nbr, args)
         ms, host_ms = time_ms(lambda: ws.select_and_group(*args))
+        op_ms, op_host_ms = time_ms(lambda: ws.select_and_group_op(*args))
         device_ms = graph_ms(lambda: ws.select_and_group(*args))
         plain_ms, _ = time_ms(lambda: nbr.select_and_group_plain(*args))
         b_ms, b_by = bound(nbytes(args[0], args[1], *outs),
                            FLOPS_PER_CANDIDATE * examined(nbr, args, group=True))
         sites["select_and_group"].append(dict(
-            site=site, **describe(args, True), ms=ms, host_ms=host_ms, device_ms=device_ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            same_order=same))
+            site=site, **describe(args, True), ms=ms, host_ms=host_ms, op_ms=op_ms,
+            op_host_ms=op_host_ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, max_abs_err=err, same_order=same))
     for name, rows in sites.items():
         for row in rows:
             emit({"phase": "kernel_site", "kernel": name, **row})
@@ -587,8 +626,8 @@ def stage_times(stream, scans):
 
 
 def stream_phase(ws, nbr, stream, scans, meta, card):
-    """Phase 4: the main path.  Returns the launches of each kernel in it and
-    the poses."""
+    """Phase 4: the main path.  Returns the launches of each kernel in it, the
+    poses and the push times."""
     run_stream(stream, ws, scans[:2])  # warm-up outside the counted run
     ws.reset_launches()
     poses, times, per_push = run_stream(stream, ws, scans)
@@ -622,7 +661,8 @@ def stream_phase(ws, nbr, stream, scans, meta, card):
           "stage_ms_median": stages,
           "last_pose": {"q": poses[-1][0].tolist(), "t": poses[-1][1].tolist()},
           "card": card})
-    return launches, poses
+    return launches, poses, {"ms_per_push_median": ms, "ms_per_push_max": max(times),
+                             "stage_ms_median": stages}
 
 
 def summed(rows, launches):
@@ -633,13 +673,16 @@ def summed(rows, launches):
     t_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
     return {"launches": launches, "launches_per_call": len(rows),
             "ms": sum(r["ms"] for r in rows), "device_ms": sum(r["device_ms"] for r in rows),
+            "host_ms": sum(r["host_ms"] for r in rows),
+            "op_ms": sum(r["op_ms"] for r in rows),
+            "op_host_ms": sum(r["op_host_ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": t_bytes + t_ops,
             "bound_by": None if not rows else "bytes" if t_bytes >= t_ops else "operations",
             "max_abs_err": max((r["max_abs_err"] for r in rows), default=0.0)}
 
 
 def kernels_line(paths, counted, card):
-    """Phase 10: one entry per kernel.  ``paths`` maps a timed path ("stream":
+    """Phase 11: one entry per kernel.  ``paths`` maps a timed path ("stream":
     one push, "train": one train step) to (its sites by kernel, its launches
     by kernel); ``counted`` maps an untimed path ("trainer", "sequence_eval",
     "slam", "host_stream", "host_train_step", "host_trainer") to its
@@ -670,10 +713,11 @@ def kernels_line(paths, counted, card):
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": where,
             **{k: total[k] for k in ("launches", "max_abs_err", "ms", "device_ms", "plain_ms",
-                                     "bound_ms", "bound_by")},
+                                     "bound_ms", "bound_by", "host_ms", "op_ms", "op_host_ms")},
             "library_ms": None,
-            "per": "times and bound: one push plus one train step, summed over call sites; "
-                   "launches: every path's counted run",
+            "per": "times and bound: one push plus one train step, summed over call sites "
+                   "(host_ms: the wrapper called directly; op_ms / op_host_ms: through the "
+                   "efficientlo:: operator); launches: every path's counted run",
             "paths": per, "card": card,
         })
     return {"kernels": kernels}
@@ -820,7 +864,7 @@ def train_vs_plain(ws, nbr, cfg, tcfg, batch, dev):
 
 def train_phase(ws, nbr, cfg, tcfg, batches, card, dev):
     """Phase 6: the train path.  Returns the launches of each kernel in its
-    counted run."""
+    counted run and the step times."""
     import torch
 
     from efficientlo_net_torch.training.step import make_train_step
@@ -855,7 +899,15 @@ def train_phase(ws, nbr, cfg, tcfg, batches, card, dev):
           "peak_memory_bytes": peak, "losses_fixed_batch": [s["losses"] for s in steps],
           "w_x": [w0[0], state.w_x.item()], "w_q": [w0[1], state.w_q.item()],
           "kernel_vs_plain": vs_plain, "card": card})
-    return launches
+    return launches, train_numbers(steps, peak)
+
+
+def train_numbers(steps, peak):
+    times = [s["ms"] for s in steps]
+    return {"ms_per_step_median": statistics.median(times), "ms_per_step_max": max(times),
+            "stage_ms_median": {n: statistics.median(s["stage_ms"][n] for s in steps)
+                                for n in steps[0]["stage_ms"]},
+            "peak_memory_bytes": peak}
 
 
 def kitti_world(sensor, length):
@@ -1047,7 +1099,8 @@ def trainer_steps(ws, trainer, tcfg, dev):
 def trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev, tree, work):
     """Phase 7: the trainer (device projection) and sequence-eval paths over
     the written KITTI ``tree``, logging under ``work``.  Returns each path's
-    counted launches for the kernels line, and the trainer's numbers."""
+    counted launches for the kernels line, the trainer's numbers, and the
+    trained state with the t_rel that ``validate()`` gave it (phase 10)."""
     import torch
 
     from efficientlo_net_torch.evaluation.runner import (predict_sequence,
@@ -1152,7 +1205,7 @@ def trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev, tree, work):
             "sequence_eval": {"launches": eval_launches, "per_call": per_batch_expected,
                               "unit": "batch", "calls": n_batches,
                               "max_abs_err": {k: max(v["max_abs_err"][k] for v in vs_plain.values())
-                                              for k in per_batch_expected}}}, train
+                                              for k in per_batch_expected}}}, train, (state, val)
 
 
 # ---- phase 8: SLAM over a rendered closed-loop drive ---------------------------
@@ -1890,6 +1943,290 @@ def host_projection_phase(ws, nbr, cfg, tcfg, scans, device_poses, batches, tree
                              "calls": TRAINER_BATCHES}}
 
 
+# ---- phase 10: bfloat16, the export artifact, the weight writer, the CLIs --------
+
+
+def bf16_stream(ws, nbr, cfg16, scans, f32_poses, dev):
+    """Phase 10a: the stream phase's scans through a bfloat16 stream: 14 + 5
+    launches a push, one push's select calls replayed through kernel and
+    plain version (exact, as in phase 3), l0 poses against the float32
+    stream's.  Returns its numbers and launches."""
+    import torch
+
+    from efficientlo_net_torch.evaluation.streaming import OdometryStream
+    from efficientlo_net_torch.pretrained import load_model
+
+    model, _ = load_model(WEIGHTS, cfg16, device=dev)
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "the bf16 model holds weights that are not float32")
+    stream = OdometryStream(model, cfg16, device=dev)
+    run_stream(stream, ws, scans[:2])  # warm-up outside the counted run
+    ws.reset_launches()
+    poses, times, per_push = run_stream(stream, ws, scans)
+    launches = dict(ws.launches)
+    expected = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES)}
+    for i, counts in enumerate(per_push):
+        check(counts == expected, f"bf16 push {i} launched {counts}, expected {expected}")
+    for q, t in poses:
+        check(np.all(np.isfinite(q)) and np.all(np.isfinite(t)), "non-finite bf16 pose")
+        check(abs(float(np.linalg.norm(q)) - 1.0) < 1e-3, f"bf16 |q| = {np.linalg.norm(q)}")
+    dq = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(poses, f32_poses))
+    dt = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(poses, f32_poses))
+    check(dq < BF16_Q_BOUND and dt < BF16_T_BOUND,
+          f"bf16 poses from the float32 stream's: q {dq}, t {dt}")
+    stream.reset()
+    stream.push(scans[0])
+    with recording(ws) as calls:
+        stream.push(scans[1])
+    counts = {k: len(v) for k, v in calls.items()}
+    check(counts == expected, f"one bf16 push made {counts} kernel calls")
+    for args in calls["window_select"]:
+        check_select_site(ws, nbr, args)
+    errs = [check_group_site(ws, nbr, args)[1] for args in calls["select_and_group"]]
+    feat_dtypes = sorted({str(args[1].dtype) for args in calls["select_and_group"]})
+    check(feat_dtypes == ["torch.float32"],
+          f"bf16 features reach select_and_group as {feat_dtypes}")
+    return {"pushes": len(scans), "launches_per_push": per_push[0],
+            "ms_per_push_median": statistics.median(times), "ms_per_push_max": max(times),
+            "stage_ms_median": stage_times(stream, scans),
+            "q_max_abs_diff_vs_f32": dq, "t_max_abs_diff_vs_f32": dt,
+            "bound": {"q": BF16_Q_BOUND, "t": BF16_T_BOUND},
+            "replayed": counts, "group_feature_dtypes": feat_dtypes,
+            "max_abs_err": {"window_select": 0.0, "select_and_group": max(errs)}}, launches
+
+
+def bf16_train(ws, cfg16, tcfg, batches, dev):
+    """Phase 10b: the bfloat16 train step on phase 6's batches (2 warm-up, 10
+    timed): 23 + 0 launches a step, finite losses, float32 loss, gradients,
+    parameters and Adam moments.  Returns its numbers and launches."""
+    import torch
+
+    from efficientlo_net_torch.training.step import make_train_step
+
+    state, _ = fresh_train_state(cfg16, tcfg, dev)
+    step = make_train_step(cfg16, tcfg)
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    state, _ = run_train(ws, step, state, batches[1:], gen)  # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats(dev)
+    ws.reset_launches()
+    state, steps = run_train(ws, step, state, [batches[0]] * TRAIN_STEPS, gen)
+    launches = dict(ws.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0}
+    for i, st in enumerate(steps):
+        check(st["launches"] == expected, f"bf16 train step {i} launched {st['launches']}")
+    _, metrics = step(state, batches[0], gen)  # one more, outside the counted run
+    moments = [v for st in state.optimizer.state.values() for v in st.values() if v.dim() > 0]
+    dtypes = {"loss": str(metrics["loss"].dtype),
+              "parameters": sorted({str(p.dtype) for p in state.parameters()}),
+              "gradients": sorted({str(p.grad.dtype) for p in state.parameters()}),
+              "adam_moments": sorted({str(v.dtype) for v in moments})}
+    check(dtypes == {"loss": "torch.float32", "parameters": ["torch.float32"],
+                     "gradients": ["torch.float32"], "adam_moments": ["torch.float32"]},
+          f"bf16 train step dtypes {dtypes}")
+    return dict(train_numbers(steps, peak), steps=len(steps), warmup_steps=TRAIN_WARMUP,
+                launches_per_step=steps[0]["launches"], dtypes=dtypes,
+                losses_fixed_batch=[st["losses"]["loss"] for st in steps]), launches
+
+
+def export_check(ws, cfg, scans, work, dev):
+    """Phase 10c: ``export_odometry`` on the card at B=1, saved and loaded
+    back; the artifact against ``make_infer_fn`` on two scans, 14 + 5
+    launches a call.  Returns its numbers and launches."""
+    import torch
+
+    from efficientlo_net_torch.pretrained import load_model
+    from efficientlo_net_torch.serving.export import (export_odometry, load_odometry,
+                                                      make_infer_fn, save_artifact)
+
+    model, _ = load_model(WEIGHTS, cfg, device=dev)
+    t0 = time.perf_counter()
+    exported = export_odometry(model, cfg, batch_size=1, device=dev)
+    export_s = time.perf_counter() - t0
+    path = save_artifact(os.path.join(work, "odometry"), exported)
+    _, call = load_odometry(path)
+    ops = {}
+    for node in exported.graph.nodes:
+        if node.op == "call_function" and str(node.target).startswith("efficientlo."):
+            ops[str(node.target)] = ops.get(str(node.target), 0) + 1
+    pc1, pc2 = (torch.as_tensor(s[None], device=dev) for s in scans[:2])
+    infer = make_infer_fn(model, cfg)
+    with torch.no_grad():
+        q_d, t_d = infer(pc1, pc2)
+    ws.reset_launches()
+    q_a, t_a = call(pc1, pc2)
+    torch.cuda.synchronize()
+    per_call = dict(ws.launches)
+    expected = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES)}
+    check(per_call == expected, f"an artifact call launched {per_call}, expected {expected}")
+    q_err = float((q_a - q_d).abs().max())
+    t_err = float((t_a - t_d).abs().max())
+    check(q_err <= EXPORT_ATOL and t_err <= EXPORT_ATOL,
+          f"the artifact differs from make_infer_fn: q {q_err}, t {t_err}")
+    ws.reset_launches()
+    artifact_ms, artifact_host_ms = time_ms(lambda: call(pc1, pc2), reps=5)
+    launches, calls = dict(ws.launches), 1 + 5 * 5
+    with torch.no_grad():
+        direct_ms, direct_host_ms = time_ms(lambda: infer(pc1, pc2), reps=5)
+    return {"export_s": export_s, "file_bytes": os.path.getsize(path),
+            "graph_ops": ops, "launches_per_call": per_call,
+            "q_max_abs_err_vs_direct": q_err, "t_max_abs_err_vs_direct": t_err,
+            "tolerance": EXPORT_ATOL, "artifact_ms_per_call": artifact_ms,
+            "artifact_host_ms_per_call": artifact_host_ms, "direct_ms_per_call": direct_ms,
+            "direct_host_ms_per_call": direct_host_ms}, launches, calls
+
+
+def writer_check(state, cfg, scans, work, dev):
+    """Phase 10d: ``save_pretrained`` of phase 7's trained state, read back by
+    ``load_model``: every tensor and the forward on one pair bit-equal.
+    Returns its numbers and the file's path."""
+    import torch
+
+    from efficientlo_net_torch.ops.projection import crop_and_project
+    from efficientlo_net_torch.pretrained import (load_model, save_pretrained,
+                                                  variables_from_train_state)
+
+    path = os.path.join(work, "phase7_state.msgpack")
+    t0 = time.perf_counter()
+    size = save_pretrained(path, variables_from_train_state(state),
+                           meta={"note": "the 50-epoch weights after phase 7's trainer steps"})
+    save_s = time.perf_counter() - t0
+    loaded, meta = load_model(path, cfg, device=dev)
+    want = state.model.state_dict()
+    differ = [k for k, v in loaded.state_dict().items() if not torch.equal(v, want[k])]
+    check(not differ, f"written weights differ: {differ[:5]}")
+    model = state.model.eval()
+    p1, p2 = (crop_and_project(torch.as_tensor(s[None], device=dev), cfg.sensor)
+              for s in scans[:2])
+    with torch.no_grad():
+        a, b = model(p1, p2), loaded(p1, p2)
+    same = all(torch.equal(x, y) for k in ("q", "t") for x, y in zip(a[k], b[k]))
+    check(same, "the loaded model's forward is not bit-equal to the trained state's")
+    return {"bytes": size, "save_s": save_s, "param_count": meta["param_count"],
+            "tensors": len(want), "forward_bit_equal": same}, path
+
+
+def cli_check(cfg, tree, weights, val, work, dev):
+    """Phase 10e: ``cli.main`` in test mode over phase 7's tree with the
+    weights phase 7 validated, then ``evaluate_cli.main`` over the
+    trajectory it wrote.  Returns its numbers."""
+    import io
+
+    from efficientlo_net_torch import cli
+    from efficientlo_net_torch.evaluation import evaluate_cli
+
+    root, gt_dir, _ = tree
+    result = os.path.join(work, "cli_result")
+    t0 = time.perf_counter()
+    cli.main(["--mode", "test", "--pretrained", weights, "--data_root", root,
+              "--gt_dir", gt_dir, "--test_list", str(KITTI_SEQ),
+              "--log_dir", os.path.join(work, "cli_log_"), "--result_dir", result,
+              "--device", dev.type])
+    cli_s = time.perf_counter() - t0
+    errors = np.loadtxt(os.path.join(result, f"{KITTI_SEQ:02d}_errors.txt"), ndmin=2)
+    t_rel = float(np.mean(errors[:, 2])) * 100.0
+    check(abs(t_rel - val) <= CLI_T_REL_ATOL,
+          f"the CLI's t_rel {t_rel} differs from phase 7's validate() {val}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = evaluate_cli.main(["--result_dir", result, "--gt_dir", gt_dir,
+                                "--eva_seqs", f"{KITTI_SEQ:02d}"])
+    lines = out.getvalue().splitlines()
+    check(rc == 0 and len(lines) == 2 and lines[0].startswith(f"seq{KITTI_SEQ:02d} "),
+          f"evaluate_cli printed {lines}")
+    check(float(lines[0].split()[2]) == round(t_rel, 2), f"evaluate_cli: {lines[0]}, t_rel {t_rel}")
+    return {"t_rel": t_rel, "validate_t_rel": val, "tolerance": CLI_T_REL_ATOL,
+            "cli_s": cli_s, "evaluate_cli": lines}
+
+
+def profiled(fn, calls):
+    """``calls`` calls of ``fn`` under torch.profiler (CPU + CUDA activity):
+    per call, the CUDA kernels and their ms, and the TOP_HOST_OPS host
+    operators by self CPU time as [name, ms, count]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(cuda, "the profiler saw no CUDA kernel")
+    host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:TOP_HOST_OPS]
+    return {"kernels_per_call": sum(e.count for e in cuda) / calls,
+            "kernel_ms_per_call": sum(e.self_device_time_total for e in cuda) / 1e3 / calls,
+            "top_host_ops": [[e.key, e.self_cpu_time_total / 1e3 / calls, e.count / calls]
+                             for e in host]}
+
+
+def dtype_profiles(cfgs, tcfg, scans, batches, dev):
+    """Phase 10f: for each config (float32, bfloat16), PROFILED_CALLS pushes
+    and PROFILED_CALLS train steps under ``profiled``, each after 2 warm-up
+    calls."""
+    import torch
+
+    from efficientlo_net_torch.evaluation.streaming import OdometryStream
+    from efficientlo_net_torch.pretrained import load_model
+    from efficientlo_net_torch.training.step import make_train_step
+
+    out = {"calls": PROFILED_CALLS}
+    for cfg in cfgs:
+        model, _ = load_model(WEIGHTS, cfg, device=dev)
+        stream = OdometryStream(model, cfg, device=dev)
+        for scan in scans[:2]:
+            stream.push(scan)
+        push = profiled(lambda: stream.push(scans[2]), PROFILED_CALLS)
+        del stream, model
+        state, _ = fresh_train_state(cfg, tcfg, dev)
+        step = make_train_step(cfg, tcfg)
+        gen = torch.Generator(dev).manual_seed(SEED + 4)
+        for batch in batches[1:]:
+            step(state, batch, gen)
+        train = profiled(lambda: step(state, batches[0], gen), PROFILED_CALLS)
+        del state, step
+        torch.cuda.empty_cache()
+        out[cfg.compute_dtype] = {"push": push, "train_step": train}
+    return out
+
+
+def bf16_serving_phase(ws, nbr, cfg, tcfg, scans, f32_stream, f32_poses, batches, f32_train,
+                       trained, tree, work, card, dev):
+    """Phase 10: the bfloat16 stream and train step, the card export
+    artifact, the weight writer, both CLIs, and float32 against bfloat16
+    under the profiler.  Returns their counted
+    launches for the kernels line."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    stream, stream_launches = bf16_stream(ws, nbr, cfg16, scans, f32_poses, dev)
+    train, train_launches = bf16_train(ws, cfg16, tcfg, batches, dev)
+    export, export_launches, export_calls = export_check(ws, cfg, scans, work, dev)
+    state, val = trained
+    writer, weights = writer_check(state, cfg, scans, work, dev)
+    clis = cli_check(cfg, tree, weights, val, work, dev)
+    profiles = dtype_profiles((cfg, cfg16), tcfg, scans, batches, dev)
+    emit({"phase": "bf16_serving", "config": "ModelConfig() full HDL-64 64x1800",
+          "weights": WEIGHTS,
+          "bf16_stream": dict(stream, f32_ms_per_push_median=f32_stream["ms_per_push_median"],
+                              f32_ms_per_push_max=f32_stream["ms_per_push_max"],
+                              f32_stage_ms_median=f32_stream["stage_ms_median"]),
+          "bf16_train_step": dict(train, f32=f32_train),
+          "export": export, "writer": writer, "cli": clis, "profiled": profiles,
+          "seconds": time.perf_counter() - t0, "card": card})
+    push = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES)}
+    return {"bf16_stream": {"launches": stream_launches, "per_call": push, "unit": "push",
+                            "calls": len(scans), "max_abs_err": stream["max_abs_err"]},
+            "bf16_train_step": {"launches": train_launches,
+                                "per_call": {"window_select": len(TRAIN_SELECT_SITES),
+                                             "select_and_group": 0},
+                                "unit": "step", "calls": TRAIN_STEPS},
+            "artifact": {"launches": export_launches, "per_call": push, "unit": "call",
+                         "calls": export_calls}}
+
+
 def main():
     import torch
 
@@ -1942,7 +2279,7 @@ def main():
     stream = OdometryStream(model, cfg, device="cuda")
     scans = make_scans(cfg.sensor, N_SCANS)
     stream_sites = kernel_phase(ws, nbr, stream, scans)
-    stream_launches, stream_poses = stream_phase(ws, nbr, stream, scans, meta, card)
+    stream_launches, stream_poses, stream_times = stream_phase(ws, nbr, stream, scans, meta, card)
     del stream, model
 
     # ---- 5.-6. train kernels, train -------------------------------------------
@@ -1952,19 +2289,22 @@ def main():
     tcfg = TrainConfig(host_projection=False)
     batches = train_batches(cfg.sensor, tcfg.batch_size)
     train_sites = train_kernel_phase(ws, nbr, cfg, tcfg, batches[0], dev)
-    train_launches = train_phase(ws, nbr, cfg, tcfg, batches, card, dev)
+    train_launches, train_times = train_phase(ws, nbr, cfg, tcfg, batches, card, dev)
 
-    # ---- 7.-10. trainer and sequence eval, SLAM, host projection, kernels line --
+    # ---- 7.-11. trainer and sequence eval, SLAM, host projection, bf16 and
+    # serving, kernels line -------------------------------------------------------
     with tempfile.TemporaryDirectory() as work:
         tree = kitti_tree(cfg, work)
-        counted, device_trainer = trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev, tree,
-                                                     os.path.join(work, "log"))
+        counted, device_trainer, trained = trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev, tree,
+                                                              os.path.join(work, "log"))
         model, _ = load_model(WEIGHTS, cfg, device="cuda")
         counted.update(slam_phase(ws, nbr, cfg, model, card, dev))
         del model
         counted.update(host_projection_phase(ws, nbr, cfg, tcfg, scans, stream_poses, batches,
                                              tree, work, device_trainer, native_build, card,
                                              dev))
+        counted.update(bf16_serving_phase(ws, nbr, cfg, tcfg, scans, stream_times, stream_poses,
+                                          batches, train_times, trained, tree, work, card, dev))
     emit(kernels_line({"stream": (stream_sites, stream_launches),
                        "train": (train_sites, train_launches)}, counted, card))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -94,6 +94,11 @@ class ModelConfig:
     head_dim: int = 256
     dropout_rate: float = 0.5
 
+    # Compute dtype of the MLP stacks ("float32" or "bfloat16").  Parameters,
+    # batch-norm statistics, the softmaxes, the pose heads and the
+    # quaternion algebra stay float32.
+    compute_dtype: str = "float32"
+
     @property
     def level_shapes(self) -> Tuple[Tuple[int, int], ...]:
         """(H, W) for levels [pre1, pre2, l0, l1, l2, l3] (ceil-division
@@ -106,6 +111,9 @@ class ModelConfig:
             w = _ceil_div(w, self.stride_w[i])
             shapes.append((h, w))
         return tuple(shapes)
+
+    def validate(self) -> None:
+        assert len(self.level_shapes) == 6
 
 
 def tiny_model_config(height: int = 16, width: int = 128, num_points: int = 2048) -> ModelConfig:
@@ -132,6 +140,38 @@ def tiny_model_config(height: int = 16, width: int = 128, num_points: int = 2048
         predictor_mlp=(32, 16),
         head_dim=64,
     )
+
+
+# Common spinning-LiDAR models as projection presets.  The network defaults
+# (strides, kernels, radii) are tuned for the 64x1800 grid; for much coarser
+# sensors, shrink the pyramid as ``tiny_model_config`` does.
+SENSOR_PRESETS = {
+    "hdl64": SensorConfig(),
+    "hdl32e": SensorConfig(
+        height=32, width=1800,
+        vertical_fov_up_deg=10.67, vertical_fov_down_deg=-30.67,
+        num_points=80000,
+    ),
+    "vlp16": SensorConfig(
+        height=16, width=1800,
+        vertical_fov_up_deg=15.0, vertical_fov_down_deg=-15.0,
+        num_points=40000,
+    ),
+    "os1_64": SensorConfig(
+        height=64, width=1024,
+        vertical_fov_up_deg=16.6, vertical_fov_down_deg=-16.6,
+        num_points=70000,
+    ),
+}
+
+
+def sensor_preset(name: str) -> SensorConfig:
+    try:
+        return SENSOR_PRESETS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown sensor preset {name!r}; have {sorted(SENSOR_PRESETS)}"
+        ) from None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,6 +23,7 @@ from ..data.loader import PrefetchLoader, quantize_points, to_device
 from .kitti_metrics import (SequenceResult, evaluate_sequence, load_poses, poses_from_rows,
                             save_sequence_errors)
 from .odometry import integrate_sequence, save_kitti_trajectory
+from .plots import write_all_plots
 
 
 def sequence_indices(seq: int) -> np.ndarray:
@@ -114,12 +115,10 @@ def evaluate_sequences(eval_step, model, dataset: OdometryDataset, sequences: Se
     """Predict, integrate and score each sequence; returns the results of the
     sequences that have ground truth.  With ``result_dir``, writes each
     trajectory (``XX_pred.txt``, KITTI rows) and its segment errors
-    (``XX_errors.txt``).  ``stream_fns`` (``make_streaming_eval_fns``)
-    predicts with cached pyramids in place of the pairwise ``eval_step``."""
-    if make_plots:
-        raise NotImplementedError(
-            "make_plots: evaluation/plots.py is not ported yet (ROADMAP.md, Queue 1, "
-            "the serving and CLI slice)")
+    (``XX_errors.txt``), and with ``make_plots`` its plots
+    (``XX_eval/``, ``plots.write_all_plots``).  ``stream_fns``
+    (``make_streaming_eval_fns``) predicts with cached pyramids in place of
+    the pairwise ``eval_step``."""
     results = {}
     for seq in sequences:
         name = SEQ_NAMES[seq]
@@ -134,14 +133,22 @@ def evaluate_sequences(eval_step, model, dataset: OdometryDataset, sequences: Se
             os.makedirs(result_dir, exist_ok=True)
             save_kitti_trajectory(os.path.join(result_dir, f"{name}_pred.txt"), rows)
         gt_path = os.path.join(gt_dir, f"{name}.txt")
+        poses_res = poses_from_rows(rows)
+        plot_dir = (os.path.join(result_dir, f"{name}_eval")
+                    if make_plots and result_dir is not None else None)
         if not os.path.exists(gt_path):
             log(f"seq{name}: no ground truth, skipping metrics")
+            if plot_dir is not None:
+                write_all_plots(name, None, poses_res, [], plot_dir)
             continue
-        res = evaluate_sequence(load_poses(gt_path), poses_from_rows(rows), seq=name)
+        poses_gt = load_poses(gt_path)
+        res = evaluate_sequence(poses_gt, poses_res, seq=name)
         results[seq] = res
         log(res.summary())
         if result_dir is not None:
             save_sequence_errors(res.errors, os.path.join(result_dir, f"{name}_errors.txt"))
+        if plot_dir is not None:
+            write_all_plots(name, poses_gt, poses_res, res.errors, plot_dir)
     return results
 
 

@@ -8,6 +8,15 @@ channels-last: grids (B, H, W, C), neighbour groups (B, N, K, C).  Module and
 parameter names follow the JAX package's Flax names, so the weight bridge
 (``pretrained.variables_to_state_dict``) maps one to one; initialization is
 Flax's (Xavier-uniform weights, zero biases).
+
+``dtype`` is the compute dtype of the MLP stacks (``ModelConfig.compute_dtype``).
+Under bfloat16 the casts are the JAX package's, place by place: parameters
+stay float32 and each dense layer casts its input, weight and bias (as Flax's
+``promote_dtype``); batch norm computes in float32 and returns the input's
+dtype; the masked softmaxes and the pose heads run in float32; a product
+with a float32 mask or a concatenation with float32 features promotes to
+float32 where ``*`` and ``jnp.concatenate`` do.  So every pyramid feature and
+every cost volume is float32, and the neighbour selects only see float32.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import neighbors as nbr
@@ -39,6 +49,8 @@ class ScheduledBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x, momentum=0.99):
+        in_dtype = x.dtype
+        x = x.float()  # statistics and normalization in float32
         if self.training:
             axes = tuple(range(x.dim() - 1))
             mean = torch.mean(x, dim=axes)
@@ -49,7 +61,7 @@ class ScheduledBatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.epsilon)
-        return (x - mean) * inv * self.scale + self.bias
+        return ((x - mean) * inv * self.scale + self.bias).to(in_dtype)
 
 
 def _dense(in_features: int, out_features: int) -> nn.Linear:
@@ -62,10 +74,13 @@ def _dense(in_features: int, out_features: int) -> nn.Linear:
 
 
 class ConvMLP(nn.Module):
-    """Stack of 1x1 convs over the channel axis: Linear -> BN -> ReLU."""
+    """Stack of 1x1 convs over the channel axis: Linear -> BN -> ReLU, the
+    linear layers in ``dtype``."""
 
-    def __init__(self, in_features: int, features: Sequence[int]):
+    def __init__(self, in_features: int, features: Sequence[int],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.depth = len(features)
         for i, f in enumerate(features):
             self.add_module(f"dense_{i}", _dense(in_features, f))
@@ -73,9 +88,16 @@ class ConvMLP(nn.Module):
             in_features = f
         self.out_features = in_features
 
+    def _linear(self, dense: nn.Linear, x):
+        if self.dtype == torch.float32:
+            return dense(x)
+        # Flax's Dense: input, kernel and bias cast to the compute dtype, the
+        # product rounded, then the bias added (not one fused addmm)
+        return F.linear(x.to(self.dtype), dense.weight.to(self.dtype)) + dense.bias.to(self.dtype)
+
     def forward(self, x, bn_momentum=0.99):
         for i in range(self.depth):
-            x = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x), bn_momentum)
+            x = getattr(self, f"bn_{i}")(self._linear(getattr(self, f"dense_{i}"), x), bn_momentum)
             x = torch.relu(x)
         return x
 
@@ -93,8 +115,9 @@ class Head1x1(nn.Module):
 
 def softmax_valid(feature_bnc, weight_bnc, mask_valid):
     """Masked softmax-weighted pooling over the valid points of axis 1.
-    Returns (B, 1, C)."""
-    logits = torch.where(mask_valid[..., None], weight_bnc, _MASK_NEG)
+    Returns (B, 1, C), in float32."""
+    feature_bnc = feature_bnc.float()
+    logits = torch.where(mask_valid[..., None], weight_bnc.float(), _MASK_NEG)
     w = torch.softmax(logits, dim=1)
     # zero out fully-invalid batches' contributions from masked points
     w = w * mask_valid[..., None]
@@ -113,13 +136,14 @@ class DownConv(nn.Module):
     reach the source features."""
 
     def __init__(self, in_features: int, kernel_size: Tuple[int, int], k: int,
-                 distance: float, mlp: Sequence[int], out_hw: Tuple[int, int]):
+                 distance: float, mlp: Sequence[int], out_hw: Tuple[int, int],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel_size = tuple(kernel_size)
         self.k = k
         self.distance = distance
         self.out_hw = tuple(out_hw)
-        self.mlp = ConvMLP(3 + in_features, mlp)
+        self.mlp = ConvMLP(3 + in_features, mlp, dtype)
 
     def forward(self, xyz_proj, feat_proj, stride_hw, perm=None, bn_momentum=0.99):
         b = xyz_proj.shape[0]
@@ -134,7 +158,8 @@ class DownConv(nn.Module):
 
         diff = xyz_group - new_xyz[:, :, None, :]
         out = self.mlp(torch.cat([diff, feat_group], dim=-1), bn_momentum)
-        # amax splits the gradient evenly among tied maxima, as jnp.max does
+        # amax splits the gradient evenly among tied maxima, as jnp.max does;
+        # the float32 mask promotes a bfloat16 MLP output to float32
         out = torch.amax(out * mask, dim=2)  # (B, N, C)
         return out, new_xyz_proj
 
@@ -146,14 +171,14 @@ class UpConv(nn.Module):
 
     def __init__(self, in_dense: int, in_coarse: int, kernel_size: Tuple[int, int],
                  nsample: int, distance: float, stride_hw: Tuple[int, int],
-                 mlp: Sequence[int], mlp2: Sequence[int]):
+                 mlp: Sequence[int], mlp2: Sequence[int], dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel_size = tuple(kernel_size)
         self.nsample = nsample
         self.distance = distance
         self.stride_hw = tuple(stride_hw)
-        self.mlp = ConvMLP(3 + in_coarse, mlp)
-        self.mlp2 = ConvMLP(self.mlp.out_features + in_dense, mlp2)
+        self.mlp = ConvMLP(3 + in_coarse, mlp, dtype)
+        self.mlp2 = ConvMLP(self.mlp.out_features + in_dense, mlp2, dtype)
 
     def forward(self, xyz1_proj, xyz2_proj, feat1, feat2_proj, perm=None, bn_momentum=0.99):
         b, h, w, _ = xyz1_proj.shape
@@ -183,7 +208,8 @@ class CostVolume(nn.Module):
     """
 
     def __init__(self, in1: int, in2: int, kernel_size1, kernel_size2, nsample: int,
-                 nsample_q: int, distance: float, mlp1: Sequence[int], mlp2: Sequence[int]):
+                 nsample_q: int, distance: float, mlp1: Sequence[int], mlp2: Sequence[int],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel_size1 = tuple(kernel_size1)
         self.kernel_size2 = tuple(kernel_size2)
@@ -191,11 +217,11 @@ class CostVolume(nn.Module):
         self.nsample_q = nsample_q
         self.distance = distance
         c = mlp1[-1]
-        self.cv_mlp1 = ConvMLP(10 + in1 + in2, mlp1)
-        self.cv_xyz = ConvMLP(10, (c,))
-        self.cv_sum_mlp = ConvMLP(2 * c, mlp2)
-        self.cv_sum_xyz = ConvMLP(10, (c,))
-        self.cv_agg_mlp = ConvMLP(c + in1 + c, mlp2)
+        self.cv_mlp1 = ConvMLP(10 + in1 + in2, mlp1, dtype)
+        self.cv_xyz = ConvMLP(10, (c,), dtype)
+        self.cv_sum_mlp = ConvMLP(2 * c, mlp2, dtype)
+        self.cv_sum_xyz = ConvMLP(10, (c,), dtype)
+        self.cv_agg_mlp = ConvMLP(c + in1 + c, mlp2, dtype)
 
     def forward(self, warped_xyz1_proj, xyz2_proj, feat1_proj, feat2_proj, perm=None,
                 bn_momentum=0.99):
@@ -224,9 +250,10 @@ class CostVolume(nn.Module):
         feat_emb = self.cv_mlp1(feat_in, bn_momentum)
         xyz_enc = self.cv_xyz(xyz_enc_in, bn_momentum)
         attn = self.cv_sum_mlp(torch.cat([xyz_enc, feat_emb], dim=-1), bn_momentum)
-        attn = torch.where(mask_q > 0, attn, _MASK_NEG)
+        # the masked softmaxes in float32 (a Python float would not promote)
+        attn = torch.where(mask_q > 0, attn.float(), _MASK_NEG)
         wq = torch.softmax(attn, dim=2)
-        first = torch.sum(wq * feat_emb, dim=2)  # (B, N, C)
+        first = torch.sum(wq * feat_emb.float(), dim=2)  # (B, N, C)
         first_proj = first.reshape(b, h, w, -1)
 
         # ---- stage 2: self-aggregation ----------------------------------
@@ -249,17 +276,17 @@ class CostVolume(nn.Module):
         pc_xyz_enc = self.cv_sum_xyz(pc_xyz_in, bn_momentum)
         pc_attn = self.cv_agg_mlp(torch.cat([pc_xyz_enc, pc_feat_new, pc_grouped_feat], dim=-1),
                                   bn_momentum)
-        pc_attn = torch.where(mask_p > 0, pc_attn, _MASK_NEG)
+        pc_attn = torch.where(mask_p > 0, pc_attn.float(), _MASK_NEG)
         wp = torch.softmax(pc_attn, dim=2)
-        return torch.sum(wp * pc_grouped_feat, dim=2)
+        return torch.sum(wp * pc_grouped_feat.float(), dim=2)
 
 
 class FlowPredictor(nn.Module):
     """Concat(inputs) -> MLP."""
 
-    def __init__(self, in_features: int, mlp: Sequence[int]):
+    def __init__(self, in_features: int, mlp: Sequence[int], dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mlp = ConvMLP(in_features, mlp)
+        self.mlp = ConvMLP(in_features, mlp, dtype)
 
     def forward(self, inputs, bn_momentum=0.99):
         return self.mlp(torch.cat([v for v in inputs if v is not None], dim=-1), bn_momentum)

@@ -11,6 +11,10 @@ explicit ``torch.Generator`` on the model's device: in training the pose
 heads' dropout masks, and, with ``stochastic=True``, a fresh scan-order
 permutation at every first-K select (the JAX package's ``neighbor`` and
 ``dropout`` streams; the two give different numbers from one seed).
+
+``cfg.compute_dtype`` sets the dtype of every MLP stack (bfloat16 or
+float32); the pose heads stay float32 and the parameters are float32 either
+way, so one set of weights serves both.
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ class PWCLONet(nn.Module):
         feat_c = [m[-1] for m in cfg.down_mlps]  # l0..l3 feature channels
         cv_c = cfg.cv_mlp1[-1]
         pred_c = cfg.predictor_mlp[-1]
+        dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
         # Siamese pyramid: one module per level, applied to both frames.
         in_c = [3] + feat_c[:3]  # level 0 gets zero features of width 3
@@ -82,19 +87,19 @@ class PWCLONet(nn.Module):
         self.down_layers = []
         for i in range(4):
             layer = DownConv(in_c[i], cfg.down_kernels[i], cfg.down_K[i],
-                             cfg.down_conv_dis[i], cfg.down_mlps[i], shapes[i + 2])
+                             cfg.down_conv_dis[i], cfg.down_mlps[i], shapes[i + 2], dtype)
             self.add_module(f"down_l{i}", layer)
             self.down_layers.append(layer)
 
         # Coarse correlation at l2 + pooling down_conv to l3.
         self.cv_origin = CostVolume(
             feat_c[2], feat_c[2], cfg.cv_kernel1, cfg.cv_kernel2[3], cfg.cv_nsample,
-            cfg.cv_nsample_q[3], cfg.cost_volume_dis[2], cfg.cv_mlp1, cfg.cv_mlp2,
+            cfg.cv_nsample_q[3], cfg.cost_volume_dis[2], cfg.cv_mlp1, cfg.cv_mlp2, dtype,
         )
         self.cv_down_l3 = DownConv(cv_c, cfg.down_kernels[3], cfg.down_K[3],
-                                   cfg.down_conv_dis[3], cfg.cv_down_mlp, shapes[5])
+                                   cfg.down_conv_dis[3], cfg.cv_down_mlp, shapes[5], dtype)
         l3_pred_c = cfg.cv_down_mlp[-1]
-        self.l3_w_predictor = FlowPredictor(feat_c[3] + l3_pred_c, cfg.predictor_mlp)
+        self.l3_w_predictor = FlowPredictor(feat_c[3] + l3_pred_c, cfg.predictor_mlp, dtype)
         self.l3_head = PoseHead(l3_pred_c, cfg.head_dim, cfg.dropout_rate)
 
         # Warp-refinement levels l2, l1, l0; up_conv strides map level i to
@@ -106,16 +111,17 @@ class PWCLONet(nn.Module):
             parts = {
                 "cv": CostVolume(feat_c[i], feat_c[i], cfg.cv_kernel1, cfg.cv_kernel2[i],
                                  cfg.cv_nsample, cfg.cv_nsample_q[i], cfg.cost_volume_dis[i],
-                                 cfg.cv_mlp1, cfg.cv_mlp2),
+                                 cfg.cv_mlp1, cfg.cv_mlp2, dtype),
                 "up_w": UpConv(feat_c[i], coarse_w, cfg.up_kernel, cfg.up_nsample,
-                               cfg.up_conv_dis[i], strides[i + 3], cfg.up_mlp1, cfg.up_mlp2),
+                               cfg.up_conv_dis[i], strides[i + 3], cfg.up_mlp1, cfg.up_mlp2,
+                               dtype),
                 "up_feat": UpConv(feat_c[i], coarse_pred, cfg.up_kernel, cfg.up_nsample,
                                   cfg.up_conv_dis[i], strides[i + 3], cfg.up_mlp1,
-                                  cfg.up_mlp2),
+                                  cfg.up_mlp2, dtype),
                 "pred_feat": FlowPredictor(feat_c[i] + cfg.up_mlp2[-1] + cv_c,
-                                           cfg.predictor_mlp),
+                                           cfg.predictor_mlp, dtype),
                 "pred_w": FlowPredictor(feat_c[i] + cfg.up_mlp2[-1] + cv_c,
-                                        cfg.predictor_mlp),
+                                        cfg.predictor_mlp, dtype),
                 "head": PoseHead(pred_c, cfg.head_dim, cfg.dropout_rate),
             }
             for name, module in parts.items():

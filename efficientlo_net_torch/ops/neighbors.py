@@ -7,15 +7,20 @@ candidates that are valid (non-zero) and within a radius of a valid centre,
 and return the first K in scan order (``FIRST_K``, optionally in a permuted
 scan order) or the K nearest (``KNN``, ties to the lowest window slot).
 
-``select_neighbors`` and ``select_and_group`` launch the CUDA kernels of
-``window_select`` for CUDA tensors and run the plain PyTorch versions
-(``*_plain``) for CPU tensors.  The plain versions are also the reference
-the kernels are checked against.  The selects carry no gradient (indices and
-masks); ``gather_by_index`` carries it into the gathered values.
+``select_neighbors`` and ``select_and_group`` call the ``torch.library``
+operators that ``window_select`` registers: for CUDA tensors they launch its
+CUDA kernels, for CPU tensors they run the plain PyTorch versions
+(``*_plain``).  The plain versions are also the reference the kernels are
+checked against.  The selects carry no gradient (indices and masks);
+``gather_by_index`` carries it into the gathered values.  Inside
+``plain_selects()`` both run the plain versions inline, with no operator:
+``serving.export`` traces a portable artifact so.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Tuple
 
 import torch
@@ -24,6 +29,7 @@ FIRST_K = "first_k"
 KNN = "knn"
 
 _VALID_EPS = 1e-10
+_inline_plain = contextvars.ContextVar("plain_selects", default=False)
 
 
 def _sq3(v: torch.Tensor) -> torch.Tensor:
@@ -164,7 +170,9 @@ def select_and_group_plain(
         xyz, xyz, kernel_size, k, distance, center_stride=center_stride,
         mode=mode, perm=perm,
     )
-    return _group(xyz, feats, idx, mask)
+    gxyz, gfeat, mask = _group(xyz, feats, idx, mask)
+    # separate buffers: the CPU operator's outputs may not alias each other
+    return gxyz.contiguous(), gfeat.contiguous(), mask
 
 
 def _group(xyz, feats, idx, mask):
@@ -174,12 +182,44 @@ def _group(xyz, feats, idx, mask):
     return both[..., :3], both[..., 3:], mask
 
 
-def _on_cuda(x: torch.Tensor) -> bool:
-    if x.is_cuda:
-        return True
-    if x.device.type != "cpu":
-        raise ValueError(f"no neighbour select for device {x.device}")
-    return False
+@contextlib.contextmanager
+def plain_selects():
+    """Inside the block, ``select_neighbors`` and ``select_and_group`` run
+    the plain versions inline on CPU tensors, with no custom operator: a
+    traced graph then holds plain PyTorch operations only.  The counterpart
+    of the JAX package's ``ELO_NEIGHBOR_IMPL=fast`` for a portable export.
+    CPU only: a select on a CUDA tensor inside the block raises, so no path
+    that runs on a card can give way to the plain version."""
+    token = _inline_plain.set(True)
+    try:
+        yield
+    finally:
+        _inline_plain.reset(token)
+
+
+def _inline_plain_on(t: torch.Tensor) -> bool:
+    """True inside ``plain_selects()``; raises there for a CUDA tensor."""
+    if not _inline_plain.get():
+        return False
+    if t.is_cuda:
+        raise RuntimeError(
+            "plain_selects() is CPU only: a CUDA tensor goes through the kernel")
+    return True
+
+
+def _ops():
+    """``torch.ops.efficientlo``, registered by importing ``window_select``."""
+    from . import window_select  # noqa: F401
+
+    return torch.ops.efficientlo
+
+
+def _op_args(kernel_size, k, distance, center_stride, mode, perm, device):
+    """The operators' scalar arguments as their schema types; the scan
+    permutation as a tensor on ``device``."""
+    perm = None if perm is None else torch.as_tensor(perm, device=device)
+    return ([int(v) for v in kernel_size], int(k), float(distance),
+            [int(v) for v in center_stride], str(mode), perm)
 
 
 def select_neighbors(xyz1, xyz2, kernel_size, k, distance, center_stride=(1, 1),
@@ -189,16 +229,17 @@ def select_neighbors(xyz1, xyz2, kernel_size, k, distance, center_stride=(1, 1),
     xyz1 (B, H1, W1, 3) holds the centres (its center_stride-strided pixels
     in raster order); xyz2 (B, H2, W2, 3) is searched; source_stride maps
     grid-1 coordinates to grid-2 windows.  Returns (idx (B, N, K) int32 flat
-    into H2*W2, 0 where masked; mask (B, N, K, 1)).  CUDA tensors go to the
-    ``window_select`` kernel, CPU tensors to ``select_neighbors_plain``.
+    into H2*W2, 0 where masked; mask (B, N, K, 1)).  Through
+    ``efficientlo::window_select``: CUDA tensors go to the ``window_select``
+    kernel, CPU tensors to ``select_neighbors_plain``.
     """
-    if _on_cuda(xyz1):
-        from .window_select import window_select
-
-        return window_select(xyz1, xyz2, kernel_size, k, distance, center_stride,
-                             source_stride, mode, perm)
-    return select_neighbors_plain(xyz1, xyz2, kernel_size, k, distance, center_stride,
-                                  source_stride, mode, perm)
+    if _inline_plain_on(xyz1):
+        return select_neighbors_plain(xyz1, xyz2, kernel_size, k, distance, center_stride,
+                                      source_stride, mode, perm)
+    ks, k, distance, cs, mode, perm = _op_args(kernel_size, k, distance, center_stride, mode,
+                                               perm, xyz1.device)
+    return _ops().window_select(xyz1.detach(), xyz2.detach(), ks, k, distance, cs,
+                                [int(v) for v in source_stride], mode, perm)
 
 
 def select_and_group(xyz, feats, kernel_size, k, distance, center_stride=(1, 1),
@@ -206,15 +247,16 @@ def select_and_group(xyz, feats, kernel_size, k, distance, center_stride=(1, 1),
     """Select + group on one grid (the DownConv path).  Returns (grouped_xyz
     (B,N,K,3), grouped_feat (B,N,K,C), mask (B,N,K,1)).
 
-    For CUDA tensors, ``fused=True`` (eval) launches the fused
-    ``select_and_group`` kernel, whose values carry no gradient;
-    ``fused=False`` (training) launches the ``window_select`` kernel and
-    gathers with ``gather_by_index``, so gradients flow into ``xyz`` and
-    ``feats``.  CPU tensors take the plain versions either way."""
-    if fused and _on_cuda(xyz):
-        from .window_select import select_and_group as fused_kernel
-
-        return fused_kernel(xyz, feats, kernel_size, k, distance, center_stride, mode, perm)
+    ``fused=True`` (eval) calls ``efficientlo::select_and_group``: the fused
+    kernel for CUDA tensors, the plain version for CPU tensors; its values
+    carry no gradient.  ``fused=False`` (training) selects with
+    ``select_neighbors`` and gathers with ``gather_by_index``, so gradients
+    flow into ``xyz`` and ``feats``."""
+    if fused and not _inline_plain_on(xyz):
+        ks, k, distance, cs, mode, perm = _op_args(kernel_size, k, distance, center_stride,
+                                                   mode, perm, xyz.device)
+        return _ops().select_and_group(xyz.detach(), feats.detach(), ks, k, distance, cs,
+                                       mode, perm)
     idx, mask = select_neighbors(xyz, xyz, kernel_size, k, distance,
                                  center_stride=center_stride, mode=mode, perm=perm)
     return _group(xyz, feats, idx, mask)

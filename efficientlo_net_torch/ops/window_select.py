@@ -12,6 +12,15 @@ Both take CUDA tensors only and launch on the current stream; the plain
 PyTorch versions of the same functions are ``neighbors.select_neighbors_plain``
 and ``neighbors.select_and_group_plain``.  ``launches`` counts the launches
 of each kernel.
+
+Importing this module registers both as ``torch.library`` custom operators,
+``efficientlo::window_select`` and ``efficientlo::select_and_group``, which
+every call site of the port reaches through ``neighbors``: the CUDA
+implementation is the wrapper here (it looks the wrapper up at each call), the
+CPU implementation the plain version, and a fake implementation gives the
+output shapes and dtypes, so that ``torch.export`` can trace a network that
+calls them.  The operators register no autograd: their inputs come detached,
+as the JAX package cuts gradients before both Pallas calls.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import cuda_build
+from . import neighbors
 from .neighbors import FIRST_K, KNN
 
 SOURCE = "window_select.cu"
@@ -162,3 +172,54 @@ def select_and_group(
     _raise_on(err, "select_and_group")
     launches["select_and_group"] += 1
     return gxyz, gfeat, mask
+
+
+# ---- torch.library operators -------------------------------------------------
+
+def _n_centres(h: int, w: int, center_stride) -> int:
+    return -(-h // center_stride[0]) * -(-w // center_stride[1])
+
+
+@torch.library.custom_op(
+    "efficientlo::window_select", mutates_args=(), device_types="cpu",
+    schema="(Tensor xyz1, Tensor xyz2, int[] kernel_size, int k, float distance, "
+           "int[] center_stride, int[] source_stride, str mode, Tensor? perm) -> (Tensor, Tensor)")
+def window_select_op(*args):
+    """On the CPU: the plain version."""
+    return neighbors.select_neighbors_plain(*args)
+
+
+@window_select_op.register_kernel("cuda")
+def _(*args):
+    return window_select(*args)
+
+
+@window_select_op.register_fake
+def _(xyz1, xyz2, kernel_size, k, distance, center_stride, source_stride, mode, perm):
+    b, h1, w1, _ = xyz1.shape
+    n = _n_centres(h1, w1, center_stride)
+    return (xyz1.new_empty((b, n, k), dtype=torch.int32), xyz1.new_empty((b, n, k, 1)))
+
+
+@torch.library.custom_op(
+    "efficientlo::select_and_group", mutates_args=(), device_types="cpu",
+    schema="(Tensor xyz, Tensor feats, int[] kernel_size, int k, float distance, "
+           "int[] center_stride, str mode, Tensor? perm) -> (Tensor, Tensor, Tensor)")
+def select_and_group_op(*args):
+    """On the CPU: the plain version."""
+    return neighbors.select_and_group_plain(*args)
+
+
+@select_and_group_op.register_kernel("cuda")
+def _(*args):
+    return select_and_group(*args)
+
+
+@select_and_group_op.register_fake
+def _(xyz, feats, kernel_size, k, distance, center_stride, mode, perm):
+    b, h, w, _ = xyz.shape
+    n = _n_centres(h, w, center_stride)
+    dtype = torch.promote_types(xyz.dtype, feats.dtype)
+    return (xyz.new_empty((b, n, k, 3), dtype=dtype),
+            xyz.new_empty((b, n, k, feats.shape[-1]), dtype=dtype),
+            xyz.new_empty((b, n, k, 1)))

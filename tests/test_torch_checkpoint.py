@@ -19,10 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from efficientlo_net_torch import cli
 from efficientlo_net_torch.config import ModelConfig, TrainConfig, tiny_model_config
 from efficientlo_net_torch.data.kitti import SEQ_LENGTH_TABLE
 from efficientlo_net_torch.data.synthetic import random_scene
-from efficientlo_net_torch.evaluation.runner import evaluate_sequences
 from efficientlo_net_torch.models.pwclo import PWCLONet
 from efficientlo_net_torch.pretrained import load_pretrained, variables_to_state_dict
 from efficientlo_net_torch.training.checkpoint import CheckpointManager
@@ -294,15 +294,18 @@ def test_logger_writes_log_and_scalars(tmp_path, capsys):
 
 
 def test_entry_points_refuse_missing_cuda(tree, tmp_path):
-    """The trainer defaults to the card and never falls back to the CPU;
-    plots are not ported."""
+    """The trainer and the CLI default to the card and never fall back to
+    the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         _trainer(tree, tmp_path / "log", device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate_sequences(None, PWCLONet(CFG), None, [KITTI_SEQ], gt_dir=str(tmp_path),
-                           make_plots=True)
+    root, gt_dir = tree
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--mode", "test", "--data_root", root, "--gt_dir", gt_dir,
+                  "--log_dir", str(tmp_path / "cli_log"), "--test_list", str(KITTI_SEQ),
+                  "--device", "cuda"])
+    assert not list(tmp_path.glob("cli_log*"))
 
 
 @pytest.mark.cuda

@@ -1,10 +1,11 @@
-"""The port's artifact reader and weight bridge (efficientlo_net_torch/pretrained.py).
+"""The port's artifact reader, writer and weight bridge (efficientlo_net_torch/pretrained.py).
 
 The pure-Python msgpack reader against ``msgpack`` and
-``flax.serialization.msgpack_restore``; the bridge maps the 50-epoch
-artifact's 899,132 parameters one to one onto ``PWCLONet``; an artifact
-written by the JAX package drives both networks to the same poses (atol
-1e-4: float32 sums in another order).
+``flax.serialization.msgpack_restore``, and its writer against
+``msgpack.packb`` and ``flax.serialization.msgpack_serialize``, byte for
+byte; the bridge maps the 50-epoch artifact's 899,132 parameters one to
+one onto ``PWCLONet``; an artifact written by the JAX package drives both
+networks to the same poses (atol 1e-4: float32 sums in another order).
 """
 
 import json
@@ -117,6 +118,14 @@ def test_reader_decodes_each_msgpack_format(name):
     assert TPre.unpackb(data) == msgpack.unpackb(data, strict_map_key=False)
 
 
+@pytest.mark.parametrize("name", sorted(FORMATS))
+def test_writer_encodes_each_msgpack_format(name):
+    """``packb`` lays each format out as ``msgpack.packb`` does."""
+    obj, tag = FORMATS[name]
+    data = TPre.packb(obj)
+    assert data[0] == tag and data == msgpack.packb(obj)
+
+
 def test_reader_decodes_float32():
     data = msgpack.packb(0.1, use_single_float=True)
     assert data[0] == 0xCA
@@ -145,6 +154,13 @@ def test_reader_decodes_ndarray_ext(name):
     got = TPre.unpackb(data)["leaf"]
     assert got.dtype == array.dtype and got.shape == array.shape
     np.testing.assert_array_equal(got, array)
+
+
+@pytest.mark.parametrize("name", sorted(EXT_ARRAYS))
+def test_writer_encodes_ndarray_ext_as_flax(name):
+    (shape, dtype), _ = EXT_ARRAYS[name]
+    array = np.random.default_rng(0).integers(0, 255, shape).astype(dtype)
+    assert TPre.packb({"leaf": array}) == serialization.msgpack_serialize({"leaf": array})
 
 
 @pytest.mark.parametrize("data", [
