@@ -136,7 +136,23 @@ printing JSON lines:
    warm-up calls: CUDA kernels and kernel ms per call, and the host
    operators with the most self CPU time per call (the profiler's own cost
    inflates them: read them for their ranking);
-11. the ``kernels`` line (each kernel's launches, times and bound, per path
+11. parallelism (``efficientlo_net_torch/parallel``): (a) the W-axis ring's
+   block kernels: the select sites of one push that the ring shards (down
+   l0 through ``select_and_group`` with a random scan permutation, the l0
+   cost volume's KNN and aggregation selects, the l0 up-conv cropped to
+   ``UP_CROP``) run with the block offsets on the halo-widened block of
+   every rank of a ring of 3 and of 5, exact against the plain block
+   version and against the unsharded kernel's sector; device ms of each
+   block and of the unsharded call; (b) an NCCL group of one rank in this
+   process (``initialize_distributed`` from the environment, ``make_mesh``
+   on the card): the full-width ring eval forward equals the unsharded one
+   (14 + 5 launches), ``make_sharded_train_step`` at B=8 the single step,
+   the DP state's checkpoint round-trips bit-equal, ``optimize(group=)``
+   equals ``optimize()``; ms per DP step beside the plain step; (c) two
+   gloo ranks spawned on the one card, B=4 each: their step against the
+   single B=8 step, parameters after Adam bit-equal across the ranks, ms
+   per step;
+12. the ``kernels`` line (each kernel's launches, times and bound, per path
    and summed), the total seconds, then the card line, then the result
    line.
 
@@ -561,7 +577,7 @@ def kernel_phase(ws, nbr, stream, scans):
     check_group_site(ws, nbr, tuple(g))
     emit({"phase": "kernel_perm", "ok": True, "window_select_site": "up_w_l0",
           "select_and_group_site": "down_l0"})
-    return sites
+    return sites, calls
 
 
 def make_scans(sensor, n):
@@ -682,10 +698,12 @@ def summed(rows, launches):
 
 
 def kernels_line(paths, counted, card):
-    """Phase 11: one entry per kernel.  ``paths`` maps a timed path ("stream":
+    """Phase 12: one entry per kernel.  ``paths`` maps a timed path ("stream":
     one push, "train": one train step) to (its sites by kernel, its launches
     by kernel); ``counted`` maps an untimed path ("trainer", "sequence_eval",
-    "slam", "host_stream", "host_train_step", "host_trainer") to its
+    "slam", "host_stream", "host_train_step", "host_trainer", the bf16 and
+    artifact paths, "ring_blocks", "ring_forward", "dp_step_nccl",
+    "dp_step_gloo") to its
     launches by kernel, its launches per call by kernel, the unit of a call,
     the calls made, where its calls were checked against the plain versions
     the largest error by kernel, and where it also pushes scans its pushes
@@ -701,7 +719,8 @@ def kernels_line(paths, counted, card):
                for path, (sites, launches) in paths.items()}
         for path, c in counted.items():
             per[path] = {"launches": c["launches"][name],
-                         f"launches_per_{c['unit']}": c["per_call"][name], "calls": c["calls"]}
+                         f"launches_per_{c['unit']}": c["per_call"][name],
+                         "calls": c["calls"][name] if isinstance(c["calls"], dict) else c["calls"]}
             if "max_abs_err" in c:
                 per[path]["max_abs_err"] = c["max_abs_err"][name]
             if "per_push" in c:
@@ -820,33 +839,49 @@ def one_step(ws, nbr, cfg, tcfg, batch, dev, host_projected=False, plain=False):
     return {k: float(v) for k, v in metrics.items()}, grads, stats, launched
 
 
-def compare_steps(got, want, what):
+def step_errors(got, want):
+    """The largest differences of two ``one_step`` results: losses
+    (absolute), gradients (each relative to its scale: its largest entry,
+    and at least TRAIN_GRAD_FLOOR of the largest of all) and the new batch
+    statistics (absolute, and relative to each statistic's largest entry)."""
+    (m_k, g_k, s_k, _), (m_p, g_p, s_p, _) = got, want
+    top = max(float(g.abs().max()) for g in g_p.values())
+    grad = {k: float((g_k[k] - g).abs().max()) / max(float(g.abs().max()), TRAIN_GRAD_FLOOR * top)
+            for k, g in g_p.items()}
+    worst = max(grad, key=grad.get)
+    stats = {k: float((s_k[k] - v).abs().max()) for k, v in s_p.items()}
+    return {"loss_max_abs_err": max(abs(m_k[k] - m_p[k]) for k in m_p),
+            "grad_max_rel_err": grad[worst], "grad_worst": worst,
+            "stats_max_abs_err": max(stats.values()),
+            "stats_max_scale_err": max(stats[k] / max(float(v.abs().max()), 1e-30)
+                                       for k, v in s_p.items())}
+
+
+def compare_steps(got, want, what, grad_rel=TRAIN_GRAD_REL, stats_rel=None):
     """Two ``one_step`` results that should be the same optimization: the
-    losses, every gradient (relative to its scale) and the new batch
-    statistics, held to the ``TRAIN_*`` tolerances.  Returns the largest
-    differences."""
+    losses, every gradient (relative to its scale, within ``grad_rel``) and
+    the new batch statistics, held to the ``TRAIN_*`` tolerances (and, with
+    ``stats_rel``, to it relative to each statistic's scale).  Returns the
+    largest differences (``step_errors``) and the tolerances."""
     import torch
 
-    (m_k, g_k, s_k, _), (m_p, g_p, s_p, _) = got, want
-    loss_err = max(abs(m_k[k] - m_p[k]) for k in m_p)
-    check(loss_err <= TRAIN_LOSS_ATOL, f"{what[0]} losses {m_k} differ from {what[1]} {m_p}")
-    top = max(float(g.abs().max()) for g in g_p.values())
-    grad_err = 0.0
-    for k, g in g_p.items():
-        scale = max(float(g.abs().max()), TRAIN_GRAD_FLOOR * top)
-        err = float((g_k[k] - g).abs().max()) / scale
-        check(err <= TRAIN_GRAD_REL, f"gradient of {k}: {what[0]} differs from {what[1]} by "
-                                     f"{err:.3g} of its scale")
-        grad_err = max(grad_err, err)
-    stats_err = 0.0
+    (m_k, _, s_k, _), (m_p, _, s_p, _) = got, want
+    out = step_errors(got, want)
+    check(out["loss_max_abs_err"] <= TRAIN_LOSS_ATOL,
+          f"{what[0]} losses {m_k} differ from {what[1]} {m_p}")
+    check(out["grad_max_rel_err"] <= grad_rel,
+          f"gradient of {out['grad_worst']}: {what[0]} differs from {what[1]} by "
+          f"{out['grad_max_rel_err']:.3g} of its scale")
     for k, v in s_p.items():
         check(torch.allclose(s_k[k], v, **TRAIN_STATS_TOL),
               f"batch statistic {k}: {what[0]} differs from {what[1]}")
-        stats_err = max(stats_err, float((s_k[k] - v).abs().max()))
-    return {"loss_max_abs_err": loss_err, "grad_max_rel_err": grad_err,
-            "stats_max_abs_err": stats_err,
-            "tolerance": {"loss_atol": TRAIN_LOSS_ATOL, "grad_rel": TRAIN_GRAD_REL,
-                          "grad_floor": TRAIN_GRAD_FLOOR, "stats": TRAIN_STATS_TOL}}
+    if stats_rel is not None:
+        check(out["stats_max_scale_err"] <= stats_rel,
+              f"batch statistics: {what[0]} differs from {what[1]} by "
+              f"{out['stats_max_scale_err']:.3g} of a statistic's scale")
+    return {**out, "tolerance": {"loss_atol": TRAIN_LOSS_ATOL, "grad_rel": grad_rel,
+                                 "grad_floor": TRAIN_GRAD_FLOOR, "stats": TRAIN_STATS_TOL,
+                                 "stats_rel": stats_rel}}
 
 
 def train_vs_plain(ws, nbr, cfg, tcfg, batch, dev):
@@ -879,10 +914,7 @@ def train_phase(ws, nbr, cfg, tcfg, batches, card, dev):
     state, steps = run_train(ws, step, state, [batches[0]] * TRAIN_STEPS, gen)
     launches = dict(ws.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    expected = {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0}
-    for i, s in enumerate(steps):
-        check(s["launches"] == expected, f"train step {i} launched {s['launches']}, "
-                                         f"expected {expected}")
+    checked_step_launches([s["launches"] for s in steps], "train")
     check(state.w_x.item() != w0[0] and state.w_q.item() != w0[1], "w_x / w_q did not move")
     times = [s["ms"] for s in steps]
     ms = statistics.median(times)
@@ -1333,7 +1365,9 @@ def logged_solves(pg):
     log = {"ms": [], "last": None, "global": [], "keep_all": False}
     original = pg.optimize
 
-    def optimize(poses, factors, cfg=pg.GaussNewtonConfig(), prior=None, scan_factors=None):
+    def optimize(poses, factors, cfg=pg.GaussNewtonConfig(), prior=None, scan_factors=None,
+                 group=None):
+        check(group is None, "phase 8's SLAM runs ungrouped")
         t0 = time.perf_counter()
         out = original(poses, factors, cfg, prior=prior, scan_factors=scan_factors)
         float(out[1][-1])
@@ -1797,9 +1831,7 @@ def host_train_phase(ws, nbr, cfg, tcfg, batches, dev):
     state, steps = run_train(ws, step, state, [projected[0]] * TRAIN_STEPS, gen)
     launches = dict(ws.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    expected = {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0}
-    for i, st in enumerate(steps):
-        check(st["launches"] == expected, f"host-projected step {i} launched {st['launches']}")
+    expected = checked_step_launches([st["launches"] for st in steps], "host-projected")
     check(state.w_x.item() != w0[0] and state.w_q.item() != w0[1], "w_x / w_q did not move")
 
     raw = batches[0]
@@ -2012,9 +2044,7 @@ def bf16_train(ws, cfg16, tcfg, batches, dev):
     state, steps = run_train(ws, step, state, [batches[0]] * TRAIN_STEPS, gen)
     launches = dict(ws.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    expected = {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0}
-    for i, st in enumerate(steps):
-        check(st["launches"] == expected, f"bf16 train step {i} launched {st['launches']}")
+    checked_step_launches([st["launches"] for st in steps], "bf16 train")
     _, metrics = step(state, batches[0], gen)  # one more, outside the counted run
     moments = [v for st in state.optimizer.state.values() for v in st.values() if v.dim() > 0]
     dtypes = {"loss": str(metrics["loss"].dtype),
@@ -2227,6 +2257,477 @@ def bf16_serving_phase(ws, nbr, cfg, tcfg, scans, f32_stream, f32_poses, batches
                          "calls": export_calls}}
 
 
+# Phase 11: parallelism.  (a) The select sites of one push that the W-axis
+# ring shards, replayed on the halo-widened block of every rank of a ring of
+# 3 and of 5; the full config's up-conv grids (225 -> 113 columns) split over
+# no ring (the JAX package keeps them replicated), so their recorded inputs
+# are cropped to the nearest widths that split over both with stride 2.
+RING_SIZES = (3, 5)
+UP_CROP = (210, 105)
+# (b) In this process, an NCCL group of one rank: the ring forward must equal
+# the unsharded forward (exact expected; test_ring.py's q 1e-5, t 1e-4 bound
+# it), the data-parallel step the single step (one rank: the same arithmetic,
+# but for the gathers' atomics, so the TRAIN_* tolerances), the distributed
+# solve the single solve, and the checkpoint must round-trip bit-equal.
+RING_Q_ATOL, RING_T_ATOL = 1e-5, 1e-4
+SOLVE_ATOL = 1e-4
+DP_TIMED_STEPS = 3
+# (c) Two gloo ranks sharing the card, B=4 each of the B=8 batch, against the
+# single step.  Each rank's weight gradient sums its ~460k rows of a level-0
+# layer and the ranks' sums are added: another order of a float32 sum of
+# ~920k terms that cancel.  ``split_sum_reading`` redoes exactly that in one
+# process, on the single step's own layer inputs and output gradients; a
+# fault of the data-parallel step is planted (``planted_fault``: batch
+# statistics reduced in the forward but not in the backward) and read too.
+# On an H100 the summation order alone moved down_l0.mlp.dense_2.weight by
+# 9.27e-5 of its scale (the gloo step by 9.47e-5) and the fault moved a
+# gradient by 6.36 of its scale (PERF.md): GLOO_GRAD_REL is twice the
+# order's reading and the gathers' atomics (under 1e-5, phase 11b), far
+# below the fault.  A bound of 1e-5 of scale would sit below the order's own
+# reading.  Batch statistics are held to GLOO_STATS_REL of each statistic's
+# largest entry (an absolute 1e-6 is below a float32 ulp of the level-0
+# variances, 2^-17 in [64, 128)), beside the TRAIN_* tolerances; losses keep
+# TRAIN_LOSS_ATOL.
+GLOO_RANKS = 2
+GLOO_GRAD_REL = 2e-4
+GLOO_STATS_REL = 1e-6
+
+
+def ring_block_phase(ws, cases, calls):
+    """Phase 11a: every ring-sharded select site of one push on the widened
+    block of every rank, for each ring size (``torch_parallel_cases``'s
+    block checks: the kernel exact against the plain block version and the
+    unsharded kernel's sector); the block calls' launches (the
+    ``ring_blocks`` path) and calls by kernel, the largest differences, and
+    each call's device ms beside the unsharded call's."""
+    rows, errors = [], {"window_select": 0.0, "select_and_group": 0.0}
+    launched, n_calls = dict.fromkeys(errors, 0), dict.fromkeys(errors, 0)
+    for site, group, args in ring_block_cases(calls):
+        name = "select_and_group" if group else "window_select"
+        kernel = getattr(ws, name)
+        whole = kernel(*args)
+        whole_ms = graph_ms(lambda: kernel(*args))
+        block = cases.select_and_group_block if group else cases.window_select_block
+        for ring_size in RING_SIZES:
+            for r in range(ring_size):
+                before = ws.launches[name]
+                call, plain, unsharded = block(args, ring_size, r, whole)
+                launched[name] += ws.launches[name] - before
+                n_calls[name] += 1
+                check(plain == 0.0, f"{name} block of {site} (ring {ring_size}, rank {r}) "
+                                    f"differs from the plain block version by {plain}")
+                check(unsharded == 0.0, f"{name} block of {site} (ring {ring_size}, rank {r}) "
+                                        f"differs from the unsharded kernel by {unsharded}")
+                errors[name] = max(errors[name], plain, unsharded)
+                rows.append({"site": site, "kernel": name, "ring": ring_size, "rank": r,
+                             "device_ms": graph_ms(call), "unsharded_device_ms": whole_ms})
+    return rows, launched, errors, n_calls
+
+
+def ring_block_cases(calls):
+    """Phase 11a's sites: the recorded calls of one push, down_l0 with a
+    random scan permutation, the up-conv cropped (UP_CROP)."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 8)
+    g = list(calls["select_and_group"][GROUP_SITES.index("down_l0")])
+    g[7] = torch.as_tensor(rng.permutation(g[2][0] * g[2][1]), device=g[0].device)
+    cases = [("down_l0", True, tuple(g))]
+    for site in ("cv.knn_l0", "cv.self_l0"):
+        cases.append((site, False, calls["window_select"][SELECT_SITES.index(site)]))
+    up = list(calls["window_select"][SELECT_SITES.index("up_w_l0")])
+    up[0] = up[0][:, :, :UP_CROP[0]].contiguous()
+    up[1] = up[1][:, :, :UP_CROP[1]].contiguous()
+    cases.append(("up_w_l0", False, tuple(up)))
+    return cases
+
+
+def dp_train_step(ws, cfg, tcfg, batch, dev, mesh):
+    """``one_step`` through ``make_sharded_train_step`` on this rank's rows:
+    (the new state, (losses, gradients, new batch statistics, launches))."""
+    import torch
+
+    from efficientlo_net_torch.parallel.data_parallel import make_sharded_train_step
+    from efficientlo_net_torch.parallel.mesh import shard_batch
+
+    state, _ = fresh_train_state(cfg, tcfg, dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 3)
+    before = dict(ws.launches)
+    state, metrics = make_sharded_train_step(cfg, tcfg, mesh)(state, shard_batch(mesh, batch), gen)
+    torch.cuda.synchronize()
+    launched = {k: ws.launches[k] - before[k] for k in before}
+    grads = {k: p.grad for k, p in state.model.named_parameters()}
+    grads.update(w_x=state.w_x.grad, w_q=state.w_q.grad)
+    stats = {k: v for k, v in state.model.state_dict().items() if k.endswith((".mean", ".var"))}
+    return state, ({k: float(v) for k, v in metrics.items()}, grads, stats, launched)
+
+
+def timed_steps(ws, step, state, batch, gen):
+    """One warm-up and DP_TIMED_STEPS timed steps on one batch (CUDA events):
+    ``run_train``'s record of each, the warm-up first."""
+    state, warm = run_train(ws, step, state, [batch], gen)
+    state, steps = run_train(ws, step, state, [batch] * DP_TIMED_STEPS, gen)
+    return state, warm + steps
+
+
+def checked_step_launches(per_step, what):
+    """Each step's launches, as measured, against a train step's
+    (len(TRAIN_SELECT_SITES) window selects, no select_and_group).  Returns
+    the launches of one step."""
+    expected = {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0}
+    for i, launched in enumerate(per_step):
+        check(launched == expected, f"{what} step {i} launched {launched}, expected {expected}")
+    return dict(per_step[0])
+
+
+def circle_solve_inputs(dev):
+    """The circle graph of tests/test_multiprocess.py (16 factors, 2 scan
+    pairs of 64 points) on ``dev``: (poses0, factors, scan factors)."""
+    import torch
+
+    from efficientlo_net_torch.backend import pose_graph as pg
+    from efficientlo_net_torch.backend import scan_factors as sfm
+    from efficientlo_net_torch.ops import se3
+    from torch_parallel_cases import circle_graph
+
+    gt, src, dst, meas, noise, pairs, (p, q, nrm) = circle_graph()
+    poses0 = torch.as_tensor(gt, dtype=torch.float32, device=dev) @ se3.se3_exp(
+        torch.as_tensor(noise, device=dev))
+    factors = pg.make_factors(src, dst, meas, num_nodes=len(gt), capacity=16, device=dev)
+    scan = sfm.make_scan_factors(pairs, [
+        sfm.Correspondences(p_j=torch.as_tensor(p[i], device=dev),
+                            q_i=torch.as_tensor(q[i], device=dev),
+                            n_i=torch.as_tensor(nrm[i], device=dev),
+                            w=torch.ones(p.shape[1], device=dev))
+        for i in range(len(pairs))])
+    return poses0, factors, scan
+
+
+def nccl_phase(ws, nbr, cfg, tcfg, scans, batch, single, dev, work):
+    """Phase 11b: an NCCL group of one rank in this process, joined by
+    ``initialize_distributed`` from the environment torchrun would set.
+    Returns (its record, the ring forward's launches, the DP steps'
+    launches, their launches per step)."""
+    import torch
+    import torch.distributed as dist
+
+    from efficientlo_net_torch.backend import pose_graph as pg
+    from efficientlo_net_torch.ops.projection import crop_and_project
+    from efficientlo_net_torch.parallel.data_parallel import make_sharded_train_step
+    from efficientlo_net_torch.parallel.distributed import initialize_distributed
+    from efficientlo_net_torch.parallel.mesh import make_mesh, shard_batch
+    from efficientlo_net_torch.pretrained import load_model
+    from efficientlo_net_torch.training.checkpoint import CheckpointManager
+    from efficientlo_net_torch.training.state import create_train_state
+    from efficientlo_net_torch.training.step import make_train_step
+    from torch_parallel_cases import free_port
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                      RANK="0", LOCAL_RANK="0")
+    check(initialize_distributed(device="cuda"), "initialize_distributed did not join a group")
+    try:
+        out = {"backend": str(dist.get_backend()), "world": dist.get_world_size()}
+        check(out["backend"] == "nccl", f"the card's group runs {out['backend']}, not NCCL")
+        mesh, ring_mesh = make_mesh(), make_mesh((1, 1))
+        out["meshes"] = [str(mesh), str(ring_mesh)]
+
+        # the ring eval forward, the 50-epoch weights, two B=2 pairs of scans
+        model, _ = load_model(WEIGHTS, cfg, device=dev)
+        points = torch.as_tensor(np.stack(scans[:3]), device=dev)
+        proj = crop_and_project(points, cfg.sensor)
+        p1, p2 = proj[:2].contiguous(), proj[1:3].contiguous()
+        with torch.no_grad():
+            ws.reset_launches()
+            ring_out = model(p1, p2, ring_group=ring_mesh)
+            torch.cuda.synchronize()
+            ring_launches = dict(ws.launches)
+            plain_out = model(p1, p2)
+            ring_ms, _ = time_ms(lambda: model(p1, p2, ring_group=ring_mesh), reps=3, repeats=3)
+            plain_ms, _ = time_ms(lambda: model(p1, p2), reps=3, repeats=3)
+        dq = max(float((a - b).abs().max()) for a, b in zip(ring_out["q"], plain_out["q"]))
+        dt = max(float((a - b).abs().max()) for a, b in zip(ring_out["t"], plain_out["t"]))
+        check(dq <= RING_Q_ATOL and dt <= RING_T_ATOL,
+              f"ring forward differs from the unsharded forward (q {dq}, t {dt})")
+        check(ring_launches == {"window_select": len(SELECT_SITES),
+                                "select_and_group": len(GROUP_SITES)},
+              f"the ring forward launched {ring_launches}")
+        out["ring_forward"] = {"q_max_abs_diff": dq, "t_max_abs_diff": dt,
+                               "launches": ring_launches, "ms": ring_ms, "plain_ms": plain_ms,
+                               "batch": int(p1.shape[0])}
+
+        # the data-parallel step against the single step, from one state and
+        # seed, then a warm-up and the timed steps: every step's launches
+        ws.reset_launches()
+        state, dp = dp_train_step(ws, cfg, tcfg, batch, dev, mesh)
+        out["dp_step"] = compare_steps(dp, single, ("NCCL DP step", "single-process step"))
+        gen = torch.Generator(dev).manual_seed(SEED + 1)
+        _, steps = timed_steps(ws, make_sharded_train_step(cfg, tcfg, mesh),
+                               fresh_train_state(cfg, tcfg, dev)[0], shard_batch(mesh, batch), gen)
+        dp_launches = dict(ws.launches)
+        per_step = [dp[3]] + [s["launches"] for s in steps]
+        dp_per_step = checked_step_launches(per_step, "NCCL DP")
+        check(dp_launches == {k: sum(p[k] for p in per_step) for k in dp_launches},
+              f"the NCCL DP steps launched {dp_launches} in all, outside their steps too")
+        _, plain_steps = timed_steps(ws, make_train_step(cfg, tcfg),
+                                     fresh_train_state(cfg, tcfg, dev)[0], batch, gen)
+        out["dp_step"].update(ms_per_step=[s["ms"] for s in steps[1:]],
+                              plain_ms_per_step=[s["ms"] for s in plain_steps[1:]],
+                              launches=dp_launches, launches_per_step=dp_per_step,
+                              steps=len(per_step))
+
+        # the checkpoint of the DP state, through _barrier and _is_primary
+        ckpt = CheckpointManager(os.path.join(work, "nccl_ckpt"))
+        ckpt.save(state, epoch=0)
+        model2, _ = load_model(WEIGHTS, cfg, device=dev)
+        restored = ckpt.restore(create_train_state(model2, tcfg, device=dev))
+        got, want = state_tensors(restored), state_tensors(state)
+        same = got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+        check(same, "the DP state's checkpoint did not round-trip bit-equal")
+        out["checkpoint_bit_equal"] = same
+
+        # the distributed solve against the single solve
+        poses0, factors, scan = circle_solve_inputs(dev)
+        gn = pg.GaussNewtonConfig(iterations=12)
+        grouped, hist = pg.optimize(poses0, factors, gn, scan_factors=scan, group=mesh)
+        alone, hist1 = pg.optimize(poses0, factors, gn, scan_factors=scan)
+        err = float((grouped - alone).abs().max())
+        check(err <= SOLVE_ATOL, f"optimize(group=) differs from optimize() by {err}")
+        out["optimize"] = {"max_abs_diff": err, "chi2": float(hist[-1]),
+                           "chi2_single": float(hist1[-1])}
+    finally:
+        dist.destroy_process_group()
+        for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+            os.environ.pop(name, None)
+    return out, ring_launches, dp_launches, dp_per_step
+
+
+def split_sum_reading(cfg, tcfg, batch, dev):
+    """The gloo step's gradient gap from summation order alone, in one
+    process: one single-process step (``one_step``'s state and seed) keeps
+    the input and the output gradient of every ``nn.Linear`` call, and each
+    layer's weight and bias gradient is summed again twice: over the whole
+    batch by one GEMM per call (as autograd does), and as the GLOO_RANKS
+    data-parallel step sums it (one GEMM per call over each rank's rows of
+    the batch, then the ranks' sums added).  Each is held against the
+    step's own gradient, relative to its scale as ``step_errors`` holds
+    gradients."""
+    import torch
+
+    from efficientlo_net_torch.training.step import make_train_step
+
+    state, _ = fresh_train_state(cfg, tcfg, dev)
+    calls = {}
+
+    def keep(name):
+        def hook(module, inputs, output):
+            x = inputs[0].detach()
+            output.register_hook(lambda g: calls.setdefault(name, []).append((x, g.detach())))
+        return hook
+
+    linears = {n: m for n, m in state.model.named_modules() if isinstance(m, torch.nn.Linear)}
+    handles = [m.register_forward_hook(keep(n)) for n, m in linears.items()]
+    try:
+        make_train_step(cfg, tcfg)(state, batch, torch.Generator(dev).manual_seed(SEED + 3))
+    finally:
+        for h in handles:
+            h.remove()
+    grads = {k: p.grad for k, p in state.model.named_parameters()}
+    top = max(float(g.abs().max()) for g in grads.values())
+    b, share = tcfg.batch_size, tcfg.batch_size // GLOO_RANKS
+
+    def rel(got, want):
+        return float((got - want).abs().max()) / max(float(want.abs().max()), TRAIN_GRAD_FLOOR * top)
+
+    whole, split, skipped = {}, {}, []
+    with torch.no_grad():
+        for name, pairs in calls.items():
+            if any(x.shape[0] % b for x, _ in pairs):
+                skipped.append(name)
+                continue
+            w_whole = sum(g.reshape(-1, g.shape[-1]).T @ x.reshape(-1, x.shape[-1])
+                          for x, g in pairs)
+            b_whole = sum(g.reshape(-1, g.shape[-1]).sum(0) for _, g in pairs)
+            w_split, b_split = 0, 0
+            for r in range(GLOO_RANKS):
+                w_rank, b_rank = 0, 0
+                for x, g in pairs:
+                    # rank r's rows: the samples r*share..(r+1)*share of each
+                    # batch-sized block of the leading axis (both frames)
+                    rows = [i for i in range(x.shape[0]) if (i % b) // share == r]
+                    xr = x[rows].reshape(-1, x.shape[-1])
+                    gr = g[rows].reshape(-1, g.shape[-1])
+                    w_rank = w_rank + gr.T @ xr
+                    b_rank = b_rank + gr.sum(0)
+                w_split, b_split = w_split + w_rank, b_split + b_rank
+            for suffix, w_sum, s_sum in (("weight", w_whole, w_split), ("bias", b_whole, b_split)):
+                key = f"{name}.{suffix}"
+                if key in grads:
+                    whole[key] = rel(w_sum, grads[key])
+                    split[key] = rel(s_sum, grads[key])
+    worst = max(split, key=split.get)
+    return {"split_max_rel_err": split[worst], "split_worst": worst,
+            "whole_max_rel_err": max(whole.values()), "parameters": len(split),
+            "skipped_layers": skipped}
+
+
+@contextlib.contextmanager
+def planted_fault():
+    """A fault of the data-parallel step, planted while the block runs, for
+    the gradient check's reading: batch statistics summed over the group in
+    the forward, but each rank's gradient left unsummed in the backward
+    (``layers.all_reduce_sum`` without its backward all-reduce)."""
+    import torch
+
+    from efficientlo_net_torch.models import layers
+    from efficientlo_net_torch.parallel.distributed import all_reduce_
+
+    class ForwardOnlySum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            return all_reduce_(x.clone(), group)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad, None
+
+    original = layers.all_reduce_sum
+    layers.all_reduce_sum = ForwardOnlySum.apply
+    try:
+        yield
+    finally:
+        layers.all_reduce_sum = original
+
+
+def _gloo_rank(rank, world, port, batch_path, out_dir):
+    """Phase 11c's rank: one data-parallel step from the fresh state and
+    seed of ``one_step`` on its B=4 rows, over gloo, on the shared card;
+    then a warm-up and DP_TIMED_STEPS timed steps; then, uncounted, the
+    step with a planted fault (``planted_fault``)."""
+    import torch
+    import torch.distributed as dist
+
+    from efficientlo_net_torch.config import ModelConfig, TrainConfig
+    from efficientlo_net_torch.ops import window_select as ws
+    from efficientlo_net_torch.parallel.data_parallel import make_sharded_train_step
+    from efficientlo_net_torch.parallel.mesh import make_mesh, shard_batch
+
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # gloo, not NCCL: NCCL puts no two ranks on one card
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank)
+    try:
+        dev = torch.device("cuda")
+        cfg, tcfg = ModelConfig(), TrainConfig(host_projection=False)
+        batch = dict(np.load(batch_path))
+        mesh = make_mesh(device_type="cuda")
+        ws.reset_launches()
+        state, (losses, grads, stats, launched) = dp_train_step(ws, cfg, tcfg, batch, dev, mesh)
+        _, steps = timed_steps(ws, make_sharded_train_step(cfg, tcfg, mesh),
+                               fresh_train_state(cfg, tcfg, dev)[0], shard_batch(mesh, batch),
+                               torch.Generator(dev).manual_seed(SEED + 1))
+        counted = dict(ws.launches)
+        with planted_fault():
+            _, (f_losses, f_grads, f_stats, _) = dp_train_step(ws, cfg, tcfg, batch, dev, mesh)
+
+        def host(tensors):
+            return {k: v.cpu() for k, v in tensors.items()}
+
+        torch.save({"losses": losses, "grads": host(grads), "stats": host(stats),
+                    "params": torch.cat([p.detach().reshape(-1) for p in state.parameters()]).cpu(),
+                    "ms_per_step": [s["ms"] for s in steps[1:]],
+                    "per_step_launches": [launched] + [s["launches"] for s in steps],
+                    "launches": counted, "backend": str(dist.get_backend()),
+                    "fault": {"losses": f_losses, "grads": host(f_grads), "stats": host(f_stats)}},
+                   os.path.join(out_dir, f"gloo_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_phase(cfg, tcfg, batch, single, dev, work):
+    """Phase 11c: GLOO_RANKS spawned processes, gloo on the one card, each
+    B/GLOO_RANKS of the batch; their step against the single B=8 step,
+    beside the summation-order reading and the planted fault's.  Returns
+    (its record, the launches of one rank's step)."""
+    import torch
+    import torch.multiprocessing as mp
+    from torch_parallel_cases import free_port
+
+    batch_path = os.path.join(work, "gloo_batch.npz")
+    np.savez(batch_path, **batch)
+    t0 = time.perf_counter()
+    mp.start_processes(_gloo_rank, args=(GLOO_RANKS, free_port(), batch_path, work),
+                       nprocs=GLOO_RANKS, join=True, start_method="spawn")
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"gloo_rank{r}.pt")) for r in range(GLOO_RANKS)]
+    single_host = (single[0], {k: v.cpu() for k, v in single[1].items()},
+                   {k: v.cpu() for k, v in single[2].items()}, None)
+    reading = split_sum_reading(cfg, tcfg, batch, dev)
+    fault = ranks[0]["fault"]
+    fault = step_errors((fault["losses"], fault["grads"], fault["stats"], None), single_host)
+    got = (ranks[0]["losses"], ranks[0]["grads"], ranks[0]["stats"], None)
+    # the readings first, so that a failed check below still shows them
+    emit({"phase": "parallel_gloo_readings", "dp_vs_single": step_errors(got, single_host),
+          "summation_order": reading, "planted_fault": fault, "grad_rel": GLOO_GRAD_REL})
+    check(all(torch.equal(ranks[0]["params"], r["params"]) for r in ranks[1:]),
+          "parameters after the update differ across the gloo ranks")
+    check(fault["grad_max_rel_err"] > GLOO_GRAD_REL,
+          f"the planted fault moves the gradients by {fault['grad_max_rel_err']:.3g} of their "
+          f"scale, within GLOO_GRAD_REL {GLOO_GRAD_REL}")
+    check(reading["split_max_rel_err"] <= GLOO_GRAD_REL,
+          f"summation order alone moves {reading['split_worst']} by "
+          f"{reading['split_max_rel_err']:.3g} of its scale, beyond GLOO_GRAD_REL")
+    per_step = [p for r in ranks for p in r["per_step_launches"]]
+    per_rank_step = checked_step_launches(per_step, "gloo DP")
+    for i, r in enumerate(ranks):
+        check(r["launches"] == {k: sum(p[k] for p in r["per_step_launches"]) for k in r["launches"]},
+              f"gloo rank {i} launched {r['launches']} in all, outside its steps too")
+    out = compare_steps(got, single_host, ("gloo DP step", "single-process B=8 step"),
+                        grad_rel=GLOO_GRAD_REL, stats_rel=GLOO_STATS_REL)
+    out.update(ranks=GLOO_RANKS, backend=ranks[0]["backend"], params_bit_equal=True,
+               ms_per_step=[r["ms_per_step"] for r in ranks],
+               launches=[r["launches"] for r in ranks], launches_per_rank_step=per_rank_step,
+               rank_steps=len(per_step), summation_order=reading, planted_fault=fault,
+               seconds=seconds)
+    return out, per_rank_step
+
+
+def parallel_phase(ws, nbr, cfg, tcfg, scans, batches, calls, card, dev, work):
+    """Phase 11: the ring's block kernels, the NCCL group of one rank and
+    two gloo ranks on the card.  Returns the counted paths for the kernels
+    line."""
+    # the block checks, the circle graph and a free port come from
+    # tests/torch_parallel_cases.py (bare name, as phase 7 imports torch_cases)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_parallel_cases as cases
+
+    t0 = time.perf_counter()
+    ws.reset_launches()
+    rows, block_launches, block_errors, n_blocks = ring_block_phase(ws, cases, calls)
+    single = one_step(ws, nbr, cfg, tcfg, batches[0], dev)
+    nccl, ring_launches, dp_launches, dp_per_step = nccl_phase(ws, nbr, cfg, tcfg, scans,
+                                                               batches[0], single, dev, work)
+    gloo, gloo_per_step = gloo_phase(cfg, tcfg, batches[0], single, dev, work)
+    emit({"phase": "parallel", "config": "ModelConfig() full HDL-64 64x1800",
+          "weights": WEIGHTS, "ring_blocks": rows, "ring_block_calls": n_blocks,
+          "ring_block_launches": block_launches, "up_conv_crop": list(UP_CROP),
+          "nccl_one_rank": nccl, "gloo_two_ranks": gloo,
+          "seconds": time.perf_counter() - t0, "card": card})
+    push = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES)}
+    per_block = {k: block_launches[k] / max(1, n_blocks[k]) for k in push}
+    return {"ring_blocks": {"launches": block_launches, "per_call": per_block,
+                            "unit": "block", "calls": n_blocks, "max_abs_err": block_errors},
+            "ring_forward": {"launches": ring_launches, "per_call": ring_launches,
+                             "unit": "forward", "calls": 1},
+            "dp_step_nccl": {"launches": dp_launches, "per_call": dp_per_step, "unit": "step",
+                             "calls": nccl["dp_step"]["steps"]},
+            "dp_step_gloo": {"launches": {k: sum(r[k] for r in gloo["launches"]) for k in push},
+                             "per_call": gloo_per_step, "unit": "rank_step",
+                             "calls": gloo["rank_steps"]}}
+
+
 def main():
     import torch
 
@@ -2278,7 +2779,7 @@ def main():
     model, meta = load_model(WEIGHTS, cfg, device="cuda")
     stream = OdometryStream(model, cfg, device="cuda")
     scans = make_scans(cfg.sensor, N_SCANS)
-    stream_sites = kernel_phase(ws, nbr, stream, scans)
+    stream_sites, stream_calls = kernel_phase(ws, nbr, stream, scans)
     stream_launches, stream_poses, stream_times = stream_phase(ws, nbr, stream, scans, meta, card)
     del stream, model
 
@@ -2291,8 +2792,8 @@ def main():
     train_sites = train_kernel_phase(ws, nbr, cfg, tcfg, batches[0], dev)
     train_launches, train_times = train_phase(ws, nbr, cfg, tcfg, batches, card, dev)
 
-    # ---- 7.-11. trainer and sequence eval, SLAM, host projection, bf16 and
-    # serving, kernels line -------------------------------------------------------
+    # ---- 7.-12. trainer and sequence eval, SLAM, host projection, bf16 and
+    # serving, parallelism, kernels line ------------------------------------------
     with tempfile.TemporaryDirectory() as work:
         tree = kitti_tree(cfg, work)
         counted, device_trainer, trained = trainer_eval_phase(ws, nbr, cfg, tcfg, card, dev, tree,
@@ -2305,6 +2806,8 @@ def main():
                                              dev))
         counted.update(bf16_serving_phase(ws, nbr, cfg, tcfg, scans, stream_times, stream_poses,
                                           batches, train_times, trained, tree, work, card, dev))
+        counted.update(parallel_phase(ws, nbr, cfg, tcfg, scans, batches, stream_calls, card, dev,
+                                      work))
     emit(kernels_line({"stream": (stream_sites, stream_launches),
                        "train": (train_sites, train_launches)}, counted, card))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -1,14 +1,17 @@
 """Windowed pose-graph optimization: Gauss-Newton on SE(3) with a Schur
 marginalization prior.
 
-Port of ``efficientlo_net_tpu/backend/pose_graph.py`` (the single-device
-solver; the mesh reduction belongs to the parallelism slice):
+Port of ``efficientlo_net_tpu/backend/pose_graph.py``:
 
 * factor Jacobians from ``torch.func.jacfwd`` on the SE(3) Exp/Log residual
   under ``torch.func.vmap`` over factors (no hand-derived block formulas),
 * normal-equation assembly as one scatter-add over all factors,
 * sliding-window marginalization via Schur complement on the eliminated
-  poses' blocks.
+  poses' blocks;
+* with a process group, the (H, b, chi2) reduction runs distributed: each
+  rank accumulates its contiguous share of the factors (and of the scan
+  factors' points) and one all-reduce sums them, as the JAX package's
+  ``shard_map`` with a ``psum`` does.
 
 State convention: node i holds world_T_i (4, 4).  A factor (i, j, Z, w)
 constrains Z ~ T_i^-1 T_j with residual r = Log(Z^-1 T_i^-1 T_j) and weight
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -36,6 +40,8 @@ from torch.func import jacfwd, vmap
 
 from ..device import resolve_device
 from ..ops import se3
+from ..parallel.distributed import all_reduce_
+from ..parallel.mesh import axis_group
 
 
 @contextlib.contextmanager
@@ -262,14 +268,14 @@ def _prior_contribution(poses, prior: PriorFactor):
     return h_add, b_add, chi2
 
 
-def _solve_step(poses, factors, cfg: GaussNewtonConfig, prior=None, scan_factors=None):
-    h, b, chi2 = _accumulate(poses, factors, robust=cfg.robust)
+def _solve_step(poses, factors, cfg: GaussNewtonConfig, reduce_fn, prior=None,
+                scan_terms=None):
+    h, b, chi2 = reduce_fn(poses, factors)
     n = poses.shape[0]
     dim = 6 * n
-    if scan_factors is not None:
-        from .scan_factors import accumulate_scan_factors
-
-        h_s, b_s, chi2_s = accumulate_scan_factors(poses, scan_factors)
+    if scan_terms is not None:
+        scan_factors, scan_reduce = scan_terms
+        h_s, b_s, chi2_s = scan_reduce(poses, scan_factors)
         h = h + h_s
         b = b + b_s
         chi2 = chi2 + chi2_s
@@ -293,6 +299,7 @@ def optimize(
     cfg: GaussNewtonConfig = GaussNewtonConfig(),
     prior: Optional[PriorFactor] = None,
     scan_factors=None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gauss-Newton on the window, on ``poses``' device.  Returns (poses,
     chi2 history (iterations,)): entry k is the cost at the poses step k
@@ -301,13 +308,53 @@ def optimize(
     ``prior`` carries marginalized keyframes' information (see PriorFactor).
     ``scan_factors`` (a ``scan_factors.ScanFactorSet``) adds point-to-plane
     residuals from the keyframes' range images, re-linearized every
-    iteration.
+    iteration.  ``group`` (a process group, or a one-dimensional
+    ``DeviceMesh``) shards the factor axis, and the scan factors' point
+    axis, over its ranks, each passing the same arguments; the factor
+    capacity and the point count must divide by its size.  Every rank
+    returns the same poses.
     """
+    from .scan_factors import accumulate_scan_factors, make_distributed_scan_reduce
+
+    group = axis_group(group)
+    if group is None:
+        reduce_fn = functools.partial(_accumulate, robust=cfg.robust)
+        scan_reduce = accumulate_scan_factors
+    else:
+        reduce_fn = _make_distributed_reduce(group, robust=cfg.robust)
+        scan_reduce = make_distributed_scan_reduce(group)
+    scan_terms = None if scan_factors is None else (scan_factors, scan_reduce)
     history = []
     for _ in range(cfg.iterations):
-        poses, chi2 = _solve_step(poses, factors, cfg, prior, scan_factors)
+        poses, chi2 = _solve_step(poses, factors, cfg, reduce_fn, prior, scan_terms)
         history.append(chi2)
     return poses, torch.stack(history)
+
+
+def _share(n: int, group, what: str) -> slice:
+    """This rank's contiguous share of ``n`` items over ``group``."""
+    rank, size = torch.distributed.get_rank(group), torch.distributed.get_world_size(group)
+    if n % size:
+        raise ValueError(f"{what} of {n} does not split over {size} ranks")
+    return slice(rank * n // size, (rank + 1) * n // size)
+
+
+def reduce_system(h, b, chi2, group):
+    """(H, b, chi2) summed over the ranks of ``group``: one all-reduce."""
+    flat = all_reduce_(torch.cat([h.reshape(-1), b, chi2.reshape(1)]), group)
+    return flat[:h.numel()].view_as(h), flat[h.numel():-1], flat[-1]
+
+
+def _make_distributed_reduce(group, robust=None):
+    def reduce_fn(poses, factors: FactorGraph):
+        share = _share(factors.src.shape[0], group, "the factor capacity")
+        block = FactorGraph(src=factors.src[share], dst=factors.dst[share],
+                            meas=factors.meas[share], weight=factors.weight[share],
+                            valid=factors.valid[share], robust_mask=factors.robust_mask[share],
+                            num_nodes=factors.num_nodes)
+        return reduce_system(*_accumulate(poses, block, robust=robust), group)
+
+    return reduce_fn
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Point-to-plane scan factors from range images.
 
-Port of ``efficientlo_net_tpu/backend/scan_factors.py`` (single device; the
-map-block mesh reduction belongs to the parallelism slice).  Keyframe range
+Port of ``efficientlo_net_tpu/backend/scan_factors.py``, with its
+map-block reduction over a process group.  Keyframe range
 images contribute geometric residuals to the window optimization:
 
 * surface normals estimated directly on the ordered (H, W) range image:
@@ -27,7 +27,7 @@ from torch.func import jacfwd, vmap
 from ..config import SensorConfig
 from ..ops import se3
 from ..ops.projection import pixel_coords
-from .pose_graph import full_fp32, scatter_blocks
+from .pose_graph import _share, full_fp32, reduce_system, scatter_blocks
 
 _VALID_EPS = 1e-10
 
@@ -232,6 +232,21 @@ def accumulate_scan_factors(poses, sf: ScanFactorSet):
     b.index_add_(0, sf.src, b_i)
     b.index_add_(0, sf.dst, b_j)
     return h, b.reshape(-1), torch.sum(chi2)
+
+
+def make_distributed_scan_reduce(group):
+    """Map-block partitioning: each rank of ``group`` (a process group)
+    reduces its contiguous share of every scan factor's point axis, and one
+    all-reduce assembles the window system.  Returns ``reduce_fn(poses, sf)
+    -> (H, b, chi2)``, the same on every rank."""
+
+    def reduce_fn(poses, sf: ScanFactorSet):
+        share = _share(sf.p_j.shape[1], group, "the scan factors' point count")
+        block = ScanFactorSet(src=sf.src, dst=sf.dst, p_j=sf.p_j[:, share], q_i=sf.q_i[:, share],
+                              n_i=sf.n_i[:, share], w=sf.w[:, share])
+        return reduce_system(*accumulate_scan_factors(poses, block), group)
+
+    return reduce_fn
 
 
 def correspondences_for_pair(

@@ -1,8 +1,7 @@
 """Sliding-window SLAM: keyframe selection + pose-graph maintenance on top
 of frame-to-frame odometry.
 
-Port of ``efficientlo_net_tpu/backend/slam.py`` (single device; the mesh
-belongs to the parallelism slice).  The frontend supplies per-frame
+Port of ``efficientlo_net_tpu/backend/slam.py``.  The frontend supplies per-frame
 relative poses (the PWCLO network's l0 output); this module:
 
 * promotes frames to keyframes when accumulated motion exceeds distance /
@@ -13,7 +12,8 @@ relative poses (the PWCLO network's l0 output); this module:
   callable (e.g. ``OdometryStream.measure_relative`` on the two keyframes'
   range images) and added as closure factors,
 * optimizes the window with the Gauss-Newton solver of
-  ``backend/pose_graph.py`` on ``SlamConfig.solver_device``,
+  ``backend/pose_graph.py`` on ``SlamConfig.solver_device``, its
+  reductions distributed over ``group`` where one is given,
 * marginalizes keyframes that leave the window via the Schur complement:
   their factors are folded into a dense ``PriorFactor`` on the in-window
   keyframes they touched, so no information is silently dropped.
@@ -37,6 +37,7 @@ import torch
 from ..device import resolve_device
 from ..evaluation.odometry import quat_to_mat_np
 from ..ops import se3
+from ..parallel.mesh import axis_group
 from . import pose_graph as pg
 
 
@@ -110,6 +111,10 @@ class SlidingWindowSLAM:
     the candidate.  A ``closure_fn`` with a ``rel_init`` keyword gets the
     graph's own estimate as a seed.  Payloads are attached per frame via
     ``add_frame(..., payload=)`` and captured at keyframe promotion.
+    ``group`` (a process group or a one-dimensional ``DeviceMesh``, the JAX
+    package's ``mesh``) is passed to every ``pose_graph.optimize``: each of
+    its ranks runs the same SLAM on the same frames and reduces its share
+    of the factors.
     """
 
     def __init__(
@@ -118,8 +123,10 @@ class SlidingWindowSLAM:
         closure_fn: Optional[Callable] = None,
         scan_sensor=None,
         initial_payload=None,
+        group=None,
     ):
         self.cfg = cfg
+        self.group = group
         self.device = resolve_device(cfg.solver_device or "cuda")
         self.closure_fn = closure_fn
         self.scan_sensor = scan_sensor  # SensorConfig for scan-factor payloads
@@ -412,7 +419,7 @@ class SlidingWindowSLAM:
         )
         scan_factors = self._build_scan_factors(ids, id_map, poses0)
         opt, history = pg.optimize(poses0, factors, self.cfg.gn, prior=prior_local,
-                                   scan_factors=scan_factors)
+                                   scan_factors=scan_factors, group=self.group)
         opt = _host(opt)[:n_window]
 
         # write back, re-anchoring the world frame on the window head so the
@@ -474,20 +481,23 @@ class SlidingWindowSLAM:
         # robust kernel eligibility: closures only
         rmask = np.concatenate([np.zeros(len(chain_fs), np.float32),
                                 np.ones(len(self.closure_archive), np.float32)])
+        # with a group, pad the factors to a multiple of its size (zero weight)
+        ranks = (1 if self.group is None
+                 else torch.distributed.get_world_size(axis_group(self.group)))
         factors = pg.make_factors(src, dst, meas, weight, num_nodes=n, robust_mask=rmask,
-                                  device=self.device)
+                                  capacity=-(-len(fs) // ranks) * ranks, device=self.device)
         poses0 = self._poses(range(n))
         # phase 1: non-robust: a CORRECT closure starts with a residual the
         # size of the accumulated drift, and a redescending kernel evaluated
         # there would switch it off before it can act
         gn = dataclasses.replace(self.cfg.gn, iterations=iterations, robust_delta=None)
-        opt, history = pg.optimize(poses0, factors, gn)
+        opt, history = pg.optimize(poses0, factors, gn, group=self.group)
         if robust_closures:
             # phase 2: Geman-McClure polish from the pulled-in state: now
             # only genuinely inconsistent factors carry big residuals
             gn2 = dataclasses.replace(self.cfg.gn, iterations=iterations, robust_delta=1.0,
                                       robust_kernel="gm")
-            opt, history = pg.optimize(opt, factors, gn2)
+            opt, history = pg.optimize(opt, factors, gn2, group=self.group)
         opt = _host(opt)
         anchor = self.kf_poses[0] @ np.linalg.inv(opt[0])
         old_poses = [p.copy() for p in self.kf_poses]

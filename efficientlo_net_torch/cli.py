@@ -6,12 +6,16 @@ sequence lists, num_points, H/W, max_epoch, batch_size, learning_rate,
 optimizer, decay schedule, sensor preset, compute dtype, host projection,
 quantized transfer and pretrained weights.  ``--device`` (default ``cuda``)
 names the device, in place of the JAX package's ``JAX_PLATFORMS``; there is
-no fallback to the CPU.  ``--no_mesh`` is accepted: the port's trainer runs
-on one device, which is what it asks for.  ``--coordinator`` (multi-host
-runs) waits for the parallelism slice of the port.
+no fallback to the CPU.  ``--coordinator`` ("host:port" of rank 0) joins a
+multi-process run, one process per device (``parallel/distributed.py``:
+NCCL on the card, gloo on the CPU); under ``torchrun`` the rendezvous it
+sets in the environment serves as well (a ``--coordinator`` must then name
+another port than its ``MASTER_PORT``).  The trainer then trains
+data-parallel over every process unless ``--no_mesh``.
 
     python -m efficientlo_net_torch.cli --mode test --pretrained W.msgpack \\
         --data_root dataset --test_list 4
+    torchrun --nproc_per_node=4 -m efficientlo_net_torch.cli --data_root dataset
 """
 
 from __future__ import annotations
@@ -74,11 +78,11 @@ def build_parser() -> argparse.ArgumentParser:
              "load into the model — weights-only alternative to "
              "--checkpoint_path (which restores full training state)",
     )
-    p.add_argument("--no_mesh", action="store_true",
-                   help="disable multi-device DP (the port's trainer uses one device)")
+    p.add_argument("--no_mesh", action="store_true", help="disable multi-device DP")
     p.add_argument(
         "--coordinator", default=None,
-        help="multi-host: torch.distributed coordinator address (not ported yet)",
+        help="multi-process: torch.distributed rendezvous host:port of rank 0 "
+             "(or set MASTER_ADDR / MASTER_PORT, WORLD_SIZE, RANK as torchrun does)",
     )
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, or cpu); no fallback")
@@ -87,13 +91,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.coordinator is not None:
-        raise NotImplementedError(
-            "--coordinator: multi-process runs wait for the parallelism slice of the "
-            "port (ROADMAP.md, Queue 1, item 3)")
 
     from .config import ModelConfig, SensorConfig, TrainConfig, sensor_preset
+    from .parallel.distributed import broadcast_object, initialize_distributed, process_count
     from .training.trainer import Trainer
+
+    initialize_distributed(args.coordinator, device=args.device)
 
     if args.sensor is not None:
         sensor = sensor_preset(args.sensor)
@@ -115,7 +118,10 @@ def main(argv=None) -> None:
         quantized_transfer=args.quantized_transfer,
     )
 
-    log_dir = args.log_dir + datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
+    stamp = datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
+    if process_count() > 1:
+        stamp = broadcast_object(stamp)  # one log directory for every process
+    log_dir = args.log_dir + stamp
     trainer = Trainer(
         model_cfg,
         train_cfg,
@@ -126,6 +132,7 @@ def main(argv=None) -> None:
         val_list=args.val_list if args.mode == "train" else args.test_list,
         seed=args.seed,
         device=args.device,
+        use_mesh=not args.no_mesh,
     )
 
     if args.checkpoint_path:

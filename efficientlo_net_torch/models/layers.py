@@ -17,19 +17,63 @@ dtype; the masked softmaxes and the pose heads run in float32; a product
 with a float32 mask or a concatenation with float32 features promotes to
 float32 where ``*`` and ``jnp.concatenate`` do.  So every pyramid feature and
 every cost volume is float32, and the neighbour selects only see float32.
+
+Inside ``data_parallel(group)`` (the data-parallel train step) each rank
+holds its rows of a global batch: training-mode batch norm then normalizes
+over the rows of every rank of the group, as the JAX package's jitted step
+normalizes over its whole sharded batch, and dropout keeps this rank's rows
+of a global mask (``data_shard``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import contextlib
+import contextvars
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops import neighbors as nbr
+from ..parallel.distributed import all_reduce_sum
 
 _MASK_NEG = -1e10
+_data_group = contextvars.ContextVar("data_group", default=None)
+
+
+@contextlib.contextmanager
+def data_parallel(group):
+    """Inside the block the network's training-mode batch statistics and
+    dropout masks span every rank of ``group`` (see the module docstring);
+    a group of one rank, or None, changes nothing."""
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
+    token = _data_group.set(group)
+    try:
+        yield
+    finally:
+        _data_group.reset(token)
+
+
+def data_shard() -> Optional[Tuple[int, int]]:
+    """(this rank's index, the rank count) of the active data-parallel
+    group, or None outside ``data_parallel``."""
+    group = _data_group.get()
+    return None if group is None else (dist.get_rank(group), dist.get_world_size(group))
+
+
+def _global_moments(x, axes, group):
+    """Mean and biased variance over ``axes`` of the rows of every rank:
+    two differentiable all-reduces (the sums and the count, then the
+    centred squares), so the backward sums over the ranks too, as
+    ``SyncBatchNorm`` does."""
+    count = torch.full((1,), x.numel() // x.shape[-1], dtype=x.dtype, device=x.device)
+    totals = all_reduce_sum(torch.cat([torch.sum(x, dim=axes), count]), group)
+    mean = totals[:-1] / totals[-1]
+    var = all_reduce_sum(torch.sum(torch.square(x - mean), dim=axes), group) / totals[-1]
+    return mean, var
 
 
 class ScheduledBatchNorm(nn.Module):
@@ -53,8 +97,12 @@ class ScheduledBatchNorm(nn.Module):
         x = x.float()  # statistics and normalization in float32
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = torch.mean(x, dim=axes)
-            var = torch.var(x, dim=axes, correction=0)
+            group = _data_group.get()
+            if group is None:
+                mean = torch.mean(x, dim=axes)
+                var = torch.var(x, dim=axes, correction=0)
+            else:
+                mean, var = _global_moments(x, axes, group)
             with torch.no_grad():
                 self.mean.copy_(momentum * self.mean + (1.0 - momentum) * mean)
                 self.var.copy_(momentum * self.var + (1.0 - momentum) * var)
@@ -133,7 +181,10 @@ class DownConv(nn.Module):
     """Strided set-conv: K window neighbours per strided centre, per-point
     MLP on (Δxyz, feat), mask, max-pool over K.  Eval groups with the fused
     select-and-group; training selects, then gathers, so that gradients
-    reach the source features."""
+    reach the source features.  ``select_fn`` replaces the select + group
+    (the W-axis ring's ``parallel.ring.ring_select_and_group_replicated``):
+    it takes (xyz, feats, kernel_size, k, distance, center_stride=, mode=,
+    perm=) and returns (xyz_group, feat_group, mask)."""
 
     def __init__(self, in_features: int, kernel_size: Tuple[int, int], k: int,
                  distance: float, mlp: Sequence[int], out_hw: Tuple[int, int],
@@ -145,14 +196,21 @@ class DownConv(nn.Module):
         self.out_hw = tuple(out_hw)
         self.mlp = ConvMLP(3 + in_features, mlp, dtype)
 
-    def forward(self, xyz_proj, feat_proj, stride_hw, perm=None, bn_momentum=0.99):
+    def forward(self, xyz_proj, feat_proj, stride_hw, perm=None, bn_momentum=0.99,
+                select_fn=None):
         b = xyz_proj.shape[0]
         oh, ow = self.out_hw
-        xyz_group, feat_group, mask = nbr.select_and_group(
-            xyz_proj, feat_proj, self.kernel_size, self.k, self.distance,
-            center_stride=tuple(stride_hw), mode=nbr.FIRST_K, perm=perm,
-            fused=not self.training,
-        )
+        if select_fn is not None:
+            xyz_group, feat_group, mask = select_fn(
+                xyz_proj, feat_proj, self.kernel_size, self.k, self.distance,
+                center_stride=tuple(stride_hw), mode=nbr.FIRST_K, perm=perm,
+            )
+        else:
+            xyz_group, feat_group, mask = nbr.select_and_group(
+                xyz_proj, feat_proj, self.kernel_size, self.k, self.distance,
+                center_stride=tuple(stride_hw), mode=nbr.FIRST_K, perm=perm,
+                fused=not self.training,
+            )
         new_xyz_proj = xyz_proj[:, :: stride_hw[0], :: stride_hw[1], :].contiguous()
         new_xyz = new_xyz_proj.reshape(b, oh * ow, 3)
 

@@ -19,6 +19,7 @@ way, so one set of weights serves both.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -27,12 +28,14 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import quaternion as Q
 from ..ops.projection import project_to_range_image
+from ..parallel.ring import ring_select_and_group_replicated
 from .layers import (
     CostVolume,
     DownConv,
     FlowPredictor,
     Head1x1,
     UpConv,
+    data_shard,
     softmax_valid,
     valid_mask_from_xyz,
 )
@@ -40,13 +43,23 @@ from .layers import (
 
 def dropout(x, rate: float, generator: Optional[torch.Generator]):
     """Flax's ``nn.Dropout`` in training: keep each value with probability
-    1 - rate and scale it by 1 / (1 - rate); rate 0 is the identity."""
+    1 - rate and scale it by 1 / (1 - rate); rate 0 is the identity.  In a
+    data-parallel step (``layers.data_shard``) the mask is drawn for the
+    global batch and this rank keeps its rows, so the step draws what one
+    process would."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    shard = data_shard()
+    if shard is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    else:
+        index, count = shard
+        rows = x.shape[0]
+        keep = torch.rand((rows * count,) + tuple(x.shape[1:]), generator=generator,
+                          device=x.device)[index * rows:(index + 1) * rows] < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -140,9 +153,14 @@ class PWCLONet(nn.Module):
         t = kernel_size[0] * kernel_size[1]
         return torch.randperm(t, generator=generator, device=generator.device)
 
-    def _pyramid(self, xyz_proj, bn_momentum=0.99, stochastic=False, generator=None):
+    def _pyramid(self, xyz_proj, bn_momentum=0.99, stochastic=False, generator=None,
+                 ring_group=None):
         """Four down_convs for one (batch of) frame(s); returns per-level
-        (xyz_proj, feat, feat_proj)."""
+        (xyz_proj, feat, feat_proj).  With ``ring_group`` (a ``DeviceMesh``
+        with a "ring" dimension, or the ring's process group) the
+        full-resolution level-0 select, by far the heaviest, runs W-axis
+        ring-sharded (``parallel/ring.py``), its groups gathered back; the
+        coarser levels are small and stay replicated."""
         cfg = self.cfg
         shapes = cfg.level_shapes
         feats = []
@@ -150,7 +168,11 @@ class PWCLONet(nn.Module):
         cur_feat_proj = torch.zeros_like(xyz_proj)  # zero input features
         for i, layer in enumerate(self.down_layers):
             perm = self._perm(cfg.down_kernels[i], stochastic, generator)
-            feat, new_xyz = layer(cur_xyz, cur_feat_proj, self.down_strides[i], perm, bn_momentum)
+            select_fn = None
+            if ring_group is not None and i == 0:
+                select_fn = functools.partial(ring_select_and_group_replicated, mesh=ring_group)
+            feat, new_xyz = layer(cur_xyz, cur_feat_proj, self.down_strides[i], perm, bn_momentum,
+                                  select_fn=select_fn)
             h, w = shapes[i + 2]
             feat_proj = feat.reshape(feat.shape[0], h, w, feat.shape[-1])
             feats.append((new_xyz, feat, feat_proj))
@@ -166,22 +188,29 @@ class PWCLONet(nn.Module):
         return (Q.qrotate(q, xyz) + t[:, None, :]) * mask
 
     def forward(self, proj_f1: torch.Tensor, proj_f2: torch.Tensor, bn_momentum=0.99,
-                stochastic: bool = False, generator: Optional[torch.Generator] = None
-                ) -> Dict[str, Any]:
+                stochastic: bool = False, generator: Optional[torch.Generator] = None,
+                ring_group=None) -> Dict[str, Any]:
         """Both frames' range images (B, H, W, 3) -> {"q": [l0..l3], "t": ...}.
 
         In eval the Siamese tower runs once on the merged 2B batch (eval-mode
         batch norm and every pyramid op are independent across the batch).
         In training it runs twice, frame 1 then frame 2: batch statistics
         over a merged 2B batch would differ, and the shared layers update
-        their running statistics once per frame, in that order."""
+        their running statistics once per frame, in that order.
+        ``ring_group`` (eval only) ring-shards the level-0 select, see
+        ``_pyramid``; every rank of the ring passes both whole frames and
+        gets the whole output."""
         kw = dict(bn_momentum=bn_momentum, stochastic=stochastic, generator=generator)
         if self.training:
+            if ring_group is not None:
+                raise NotImplementedError(
+                    "the W-axis ring in training needs the backward of the halo exchange "
+                    "and of the sector gather (ROADMAP.md, Queue 1: the ring in training)")
             f1 = self._pyramid(proj_f1, **kw)
             f2 = self._pyramid(proj_f2, **kw)
         else:
             b = proj_f1.shape[0]
-            fb = self._pyramid(torch.cat([proj_f1, proj_f2], dim=0), **kw)
+            fb = self._pyramid(torch.cat([proj_f1, proj_f2], dim=0), ring_group=ring_group, **kw)
             f1 = [tuple(t[:b] for t in lvl) for lvl in fb]
             f2 = [tuple(t[b:] for t in lvl) for lvl in fb]
         return self.forward_from_pyramids(f1, f2, **kw)

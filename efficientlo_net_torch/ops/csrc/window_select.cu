@@ -7,9 +7,14 @@
 //     driven by pallas_select_and_group: one pass selects and copies.
 //
 // What it computes.  For every centre (i, j) of the centre-strided grid
-// (centre pixel (i*csh, j*csw) of grid 1), scan the kh x kw window of grid 2
-// based at ((i*csh)/sh, (j*csw)/sw): W wraps round the cylinder, rows outside
-// [0, H2) are skipped.  A candidate counts if the centre and the candidate
+// (centre pixel (i*csh, j*csw + c1_off) of grid 1), scan the kh x kw window
+// of grid 2 based at ((i*csh)/sh, (j*csw)/sw + c2_off): W wraps round the
+// cylinder, rows outside [0, H2) are skipped.  The column offsets and the
+// centre count n_w are 0, 0 and ceil(W1/csw) for a whole range image; the
+// W-axis ring (efficientlo_net_torch/parallel/ring.py) runs a rank's sector
+// on its block widened by kw/2 columns each side, where every window stays
+// inside the block, the wrap never fires and the indices are flat into the
+// widened block.  A candidate counts if the centre and the candidate
 // both have |p|^2 > 1e-10 and max(d^2, 1e-10) <= r^2.  FIRST_K keeps the
 // first K counted candidates in scan order (raster, or the perm order) and
 // stops; KNN keeps the K nearest, ties to the lowest window slot.
@@ -59,6 +64,7 @@ constexpr unsigned long long kNoKey = ~0ull;  // a slot that does not count
 struct Geometry {
   int B, H1, W1, H2, W2;  // grid 1 (centres) and grid 2 (source) sizes
   int n_h, n_w;           // centre grid
+  int c1_off, c2_off;     // centre column offset on grid 1, window column offset on grid 2
   int kh, kw;             // window
   int csh, csw;           // centre stride on grid 1
   int sh, sw;             // source stride from grid 1 to grid 2
@@ -127,12 +133,12 @@ __device__ int select_centre(const float* __restrict__ xyz1, const float* __rest
                              int lane, int* flat) {
   const int ci = (c / g.n_w) * g.csh;
   const int cj = (c % g.n_w) * g.csw;
-  const float* p = xyz1 + ((static_cast<size_t>(b) * g.H1 + ci) * g.W1 + cj) * 3;
+  const float* p = xyz1 + ((static_cast<size_t>(b) * g.H1 + ci) * g.W1 + cj + g.c1_off) * 3;
   const float cx = __ldg(p), cy = __ldg(p + 1), cz = __ldg(p + 2);
   if (!(sq3(cx, cy, cz) > kValidEps)) return 0;
 
   const int row0 = ci / g.sh - g.kh / 2;
-  const int col0 = cj / g.sw - g.kw / 2;
+  const int col0 = cj / g.sw + g.c2_off - g.kw / 2;
   const float* src = xyz2 + static_cast<size_t>(b) * g.H2 * g.W2 * 3;
   const int t_total = g.kh * g.kw;
   float d;
@@ -225,11 +231,13 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 Geometry make_geometry(int B, int H1, int W1, int H2, int W2, int kh, int kw, int csh,
-                       int csw, int sh, int sw, int k, float r2) {
+                       int csw, int sh, int sw, int k, float r2, int n_w, int c1_off,
+                       int c2_off) {
   Geometry g;
   g.B = B; g.H1 = H1; g.W1 = W1; g.H2 = H2; g.W2 = W2;
   g.n_h = (H1 + csh - 1) / csh;
-  g.n_w = (W1 + csw - 1) / csw;
+  g.n_w = n_w;
+  g.c1_off = c1_off; g.c2_off = c2_off;
   g.kh = kh; g.kw = kw; g.csh = csh; g.csw = csw; g.sh = sh; g.sw = sw;
   g.k = k; g.r2 = r2;
   return g;
@@ -241,27 +249,31 @@ int blocks_for(const Geometry& g) { return (g.B * g.n_h * g.n_w + kWarps - 1) / 
 
 extern "C" int elo_max_k() { return kMaxK; }
 
-// idx (B, N, K) int32 flat into H2*W2 (0 where masked), mask (B, N, K) float.
-// Returns cudaGetLastError() after the launch.
+// idx (B, N, K) int32 flat into H2*W2 (0 where masked), mask (B, N, K) float;
+// N = ceil(H1/csh) * n_w.  Returns cudaGetLastError() after the launch.
 extern "C" int elo_window_select(const float* xyz1, const float* xyz2, const int* perm,
                                  int B, int H1, int W1, int H2, int W2, int kh, int kw,
                                  int csh, int csw, int sh, int sw, int k, float r2,
-                                 int knn, int* idx, float* mask, cudaStream_t stream) {
+                                 int knn, int n_w, int c1_off, int c2_off, int* idx,
+                                 float* mask, cudaStream_t stream) {
   if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
-  const Geometry g = make_geometry(B, H1, W1, H2, W2, kh, kw, csh, csw, sh, sw, k, r2);
+  const Geometry g = make_geometry(B, H1, W1, H2, W2, kh, kw, csh, csw, sh, sw, k, r2, n_w,
+                                   c1_off, c2_off);
   auto kernel = knn ? window_select_kernel<true> : window_select_kernel<false>;
   kernel<<<blocks_for(g), kWarps * 32, 0, stream>>>(xyz1, xyz2, perm, g, idx, mask);
   return static_cast<int>(cudaGetLastError());
 }
 
 // gxyz (B, N, K, 3), gfeat (B, N, K, C), mask (B, N, K) float; masked slots
-// are zero.  Returns cudaGetLastError() after the launch.
+// are zero; N = ceil(H/csh) * n_w.  Returns cudaGetLastError() after the launch.
 extern "C" int elo_select_and_group(const float* xyz, const float* feats, const int* perm,
                                     int B, int H, int W, int C, int kh, int kw, int csh,
-                                    int csw, int k, float r2, int knn, float* gxyz,
-                                    float* gfeat, float* mask, cudaStream_t stream) {
+                                    int csw, int k, float r2, int knn, int n_w, int c1_off,
+                                    int c2_off, float* gxyz, float* gfeat, float* mask,
+                                    cudaStream_t stream) {
   if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
-  const Geometry g = make_geometry(B, H, W, H, W, kh, kw, csh, csw, 1, 1, k, r2);
+  const Geometry g = make_geometry(B, H, W, H, W, kh, kw, csh, csw, 1, 1, k, r2, n_w, c1_off,
+                                   c2_off);
   auto kernel = knn ? select_and_group_kernel<true> : select_and_group_kernel<false>;
   kernel<<<blocks_for(g), kWarps * 32, 0, stream>>>(xyz, feats, perm, g, C, gxyz, gfeat,
                                                     mask);

@@ -23,6 +23,7 @@ import contextlib
 import contextvars
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 FIRST_K = "first_k"
@@ -38,6 +39,14 @@ def _sq3(v: torch.Tensor) -> torch.Tensor:
     agree bit for bit."""
     x, y, z = v.unbind(-1)
     return (x * x + y * y) + z * z
+
+
+def window_offsets(kernel_h: int, kernel_w: int) -> np.ndarray:
+    """(T, 2) window offsets (row, column) in kernel raster order: slot t is
+    (t // kw - kh // 2, t % kw - kw // 2)."""
+    kh_half, kw_half = kernel_h // 2, kernel_w // 2
+    idx = np.arange(kernel_h * kernel_w)
+    return np.stack([idx // kernel_w - kh_half, idx % kernel_w - kw_half], axis=-1)
 
 
 def _window_index(h1, w1, h2, w2, kernel_size, center_stride, source_stride, device):

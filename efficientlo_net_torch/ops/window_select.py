@@ -56,9 +56,11 @@ def _lib() -> Tuple[ctypes.CDLL, int]:
         lib = cuda_build.load(SOURCE)
         lib.elo_max_k.argtypes = []
         lib.elo_max_k.restype = _I
-        lib.elo_window_select.argtypes = [_P, _P, _P] + [_I] * 12 + [_F, _I, _P, _P, _P]
+        lib.elo_window_select.argtypes = ([_P, _P, _P] + [_I] * 12 + [_F] + [_I] * 4
+                                          + [_P, _P, _P])
         lib.elo_window_select.restype = _I
-        lib.elo_select_and_group.argtypes = [_P, _P, _P] + [_I] * 9 + [_F, _I, _P, _P, _P, _P]
+        lib.elo_select_and_group.argtypes = ([_P, _P, _P] + [_I] * 9 + [_F] + [_I] * 4
+                                             + [_P, _P, _P, _P])
         lib.elo_select_and_group.restype = _I
         _bound = lib, lib.elo_max_k()
     return _bound
@@ -101,6 +103,17 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
 
+def _centre_columns(w1: int, csw: int, n_w, centre_col_offset: int, source_col_offset: int):
+    """The centre count across W (default ceil(W1/csw)), checked so that
+    every centre column ``j*csw + centre_col_offset`` lies inside grid 1."""
+    n_w = -(-w1 // csw) if n_w is None else int(n_w)
+    if n_w < 1 or centre_col_offset < 0 or source_col_offset < 0 \
+            or (n_w - 1) * csw + centre_col_offset >= w1:
+        raise ValueError(f"{n_w} centres at stride {csw} from column {centre_col_offset} "
+                         f"do not fit a grid of width {w1}")
+    return n_w
+
+
 def window_select(
     xyz1: torch.Tensor,
     xyz2: torch.Tensor,
@@ -111,9 +124,18 @@ def window_select(
     source_stride: Tuple[int, int] = (1, 1),
     mode: str = KNN,
     perm=None,
+    centre_col_offset: int = 0,
+    source_col_offset: int = 0,
+    n_w: Optional[int] = None,
 ):
     """Same contract as ``neighbors.select_neighbors_plain``: returns
-    (idx (B, N, K) int32 flat into H2*W2, 0 where masked; mask (B, N, K, 1))."""
+    (idx (B, N, K) int32 flat into H2*W2, 0 where masked; mask (B, N, K, 1)).
+
+    The last three describe a block of a ring sector (``parallel/ring.py``):
+    centre j of a row reads xyz1 at column ``j*csw + centre_col_offset``, its
+    window is based at column ``(j*csw)//sw + source_col_offset`` of xyz2,
+    and there are ``n_w`` centres a row (default ``ceil(W1/csw)``).  With
+    the defaults 0, 0, None the call is the whole-image select."""
     _check_grid(xyz1, "xyz1", 3)
     _check_grid(xyz2, "xyz2", 3)
     if xyz2.shape[0] != xyz1.shape[0] or xyz2.device != xyz1.device:
@@ -123,13 +145,15 @@ def window_select(
     _, h2, w2, _ = xyz2.shape
     csh, csw = (int(v) for v in center_stride)
     sh, sw = (int(v) for v in source_stride)
-    n = -(-h1 // csh) * -(-w1 // csw)
+    n_w = _centre_columns(w1, csw, n_w, centre_col_offset, source_col_offset)
+    n = -(-h1 // csh) * n_w
     idx = torch.empty((b, n, k), dtype=torch.int32, device=xyz1.device)
     mask = torch.empty((b, n, k, 1), dtype=torch.float32, device=xyz1.device)
     err = lib.elo_window_select(
         xyz1.data_ptr(), xyz2.data_ptr(), None if order is None else order.data_ptr(),
         b, h1, w1, h2, w2, kh, kw, csh, csw, sh, sw, k,
         float(distance) * float(distance), int(mode == KNN),
+        n_w, int(centre_col_offset), int(source_col_offset),
         idx.data_ptr(), mask.data_ptr(), torch.cuda.current_stream(xyz1.device).cuda_stream,
     )
     _raise_on(err, "window_select")
@@ -146,10 +170,15 @@ def select_and_group(
     center_stride: Tuple[int, int] = (1, 1),
     mode: str = FIRST_K,
     perm=None,
+    centre_col_offset: int = 0,
+    source_col_offset: int = 0,
+    n_w: Optional[int] = None,
 ):
     """Same contract as ``neighbors.select_and_group_plain``: returns
     (grouped_xyz (B,N,K,3), grouped_feat (B,N,K,C), mask (B,N,K,1)), zero in
-    masked slots.  The values carry no gradient."""
+    masked slots.  The values carry no gradient.  The block offsets and
+    ``n_w`` are ``window_select``'s; the grouped values come from the same
+    grid as the source."""
     _check_grid(xyz, "xyz", 3)
     _check_grid(feats, "feats")
     if feats.shape[:3] != xyz.shape[:3] or feats.device != xyz.device:
@@ -158,7 +187,8 @@ def select_and_group(
     b, h, w, _ = xyz.shape
     c = feats.shape[-1]
     csh, csw = (int(v) for v in center_stride)
-    n = -(-h // csh) * -(-w // csw)
+    n_w = _centre_columns(w, csw, n_w, centre_col_offset, source_col_offset)
+    n = -(-h // csh) * n_w
     gxyz = torch.empty((b, n, k, 3), dtype=torch.float32, device=xyz.device)
     gfeat = torch.empty((b, n, k, c), dtype=torch.float32, device=xyz.device)
     mask = torch.empty((b, n, k, 1), dtype=torch.float32, device=xyz.device)
@@ -166,6 +196,7 @@ def select_and_group(
         xyz.data_ptr(), feats.data_ptr(), None if order is None else order.data_ptr(),
         b, h, w, c, kh, kw, csh, csw, k,
         float(distance) * float(distance), int(mode == KNN),
+        n_w, int(centre_col_offset), int(source_col_offset),
         gxyz.data_ptr(), gfeat.data_ptr(), mask.data_ptr(),
         torch.cuda.current_stream(xyz.device).cuda_stream,
     )

@@ -9,7 +9,13 @@ so a crash never leaves half a checkpoint, and read with
 ``weights_only=True``.  The latest ``max_to_keep`` steps stay in rotation;
 the best model has its own single slot in ``best/``, which rotation never
 evicts.  ``meta_{step}.json`` holds the epoch and metrics of a step,
-``best.json`` the best ``{"val_t_rel", "step"}``.  One process writes.
+``best.json`` the best ``{"val_t_rel", "step"}``.
+
+Multi-process runs (``parallel/distributed.py``): the state is replicated,
+so process 0 alone creates the directories and writes every file, between
+two barriers: none writes while another process may still read what the
+write replaces, and none reads a file before it is whole.  Every process
+restores.
 """
 
 from __future__ import annotations
@@ -21,10 +27,26 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.distributed import process_count, process_index
 from .state import TrainState
 
 _CKPT = re.compile(r"ckpt_(\d+)\.pt$")
+
+
+def _barrier(name: str) -> None:
+    """All processes meet here (nothing with one process).  ``name`` says
+    which write the barrier closes; torch.distributed needs no name."""
+    if process_count() > 1:
+        if dist.get_backend() == dist.Backend.NCCL:
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier()
+
+
+def _is_primary() -> bool:
+    return process_index() == 0
 
 
 def _steps(directory: str) -> List[int]:
@@ -70,7 +92,9 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self._best_dir = os.path.join(self.directory, "best")
-        os.makedirs(self._best_dir, exist_ok=True)
+        if _is_primary():
+            os.makedirs(self._best_dir, exist_ok=True)
+        _barrier("ckpt_dir")
         self._best_path = os.path.join(self.directory, "best.json")
 
     def _meta_path(self, step: int) -> str:
@@ -85,15 +109,18 @@ class CheckpointManager:
         only its metadata), then evict the oldest steps beyond
         ``max_to_keep``.  Returns the step."""
         step = int(state.step)
-        if step not in self.all_steps():
-            _write(self.directory, state)
-            for old in self.all_steps()[:-self.max_to_keep]:
-                os.remove(_path(self.directory, old))
-        meta = {"epoch": epoch}
-        if metrics:
-            meta.update(metrics)
-        with open(self._meta_path(step), "w") as f:
-            json.dump(meta, f)
+        _barrier("ckpt_save")
+        if _is_primary():
+            if step not in self.all_steps():
+                _write(self.directory, state)
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    os.remove(_path(self.directory, old))
+            meta = {"epoch": epoch}
+            if metrics:
+                meta.update(metrics)
+            with open(self._meta_path(step), "w") as f:
+                json.dump(meta, f)
+        _barrier("ckpt_meta")
         return step
 
     def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
@@ -126,13 +153,16 @@ class CheckpointManager:
         """Record ``step`` as the best model.  With ``state``, also copy it
         into the ``best/`` slot, which rotation never evicts (without it,
         only ``best.json`` changes: valid while the step is in rotation)."""
-        if state is not None:
-            _write(self._best_dir, state)
-            for old in _steps(self._best_dir):
-                if old != int(state.step):
-                    os.remove(_path(self._best_dir, old))
-        with open(self._best_path, "w") as f:
-            json.dump({"val_t_rel": val_t_rel, "step": step}, f)
+        _barrier("ckpt_mark_best")
+        if _is_primary():
+            if state is not None:
+                _write(self._best_dir, state)
+                for old in _steps(self._best_dir):
+                    if old != int(state.step):
+                        os.remove(_path(self._best_dir, old))
+            with open(self._best_path, "w") as f:
+                json.dump({"val_t_rel": val_t_rel, "step": step}, f)
+        _barrier("ckpt_best")
 
     def restore_best(self, state: TrainState) -> TrainState:
         """Load the best model: the ``best/`` slot, else the rotation step

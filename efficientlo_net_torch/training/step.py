@@ -19,9 +19,11 @@ import torch
 
 from ..config import ModelConfig, SensorConfig, TrainConfig
 from ..data.loader import POINT_QUANT_SCALE
+from ..models.layers import data_parallel
 from ..models.losses import total_loss
 from ..models.preprocess import gt_quat, preprocess
 from ..ops.projection import crop_and_project, project_to_range_image
+from ..parallel.distributed import all_reduce_
 from .state import TrainState, bn_momentum_schedule, lr_schedule
 
 BATCH_KEYS = ("pc1", "pc2", "T_gt", "T_trans", "T_trans_inv", "aug_frame")
@@ -64,14 +66,33 @@ def _forward_inputs_projected(batch: Dict, device):
     return p1.detach(), p2.detach(), q_gt, t_gt
 
 
-def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, host_projected: bool = False):
+def _average_over(group, tensors) -> None:
+    """Every tensor of ``tensors`` replaced, in place, by its mean over the
+    ranks of ``group``: one all-reduce of them all, flattened."""
+    flat = all_reduce_(torch.cat([t.reshape(-1) for t in tensors]), group)
+    flat /= torch.distributed.get_world_size(group)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, host_projected: bool = False,
+                    data_group=None):
     """Returns ``train_step(state, batch, generator, stage=None) -> (state,
     metrics)``: one update of ``state`` (in place) on ``batch`` (numpy
     arrays or tensors, ``BATCH_KEYS``; with ``host_projected``, the
     loader's projected batch, ``PROJECTED_KEYS``).  ``generator`` (a
     ``torch.Generator`` on the state's device) draws the dropout masks and
     the scan permutations of every first-K select.  ``stage(name)``, if given, is
-    called after each of "inputs", "forward", "backward" and "optimizer"."""
+    called after each of "inputs", "forward", "backward" and "optimizer".
+
+    ``data_group`` (a process group; see
+    ``parallel.data_parallel.make_sharded_train_step``) makes the step this
+    rank's share of a data-parallel step over ``batch``, its rows of the
+    global batch: batch statistics and dropout masks span the group, and the
+    gradients (the network's, ``w_x`` and ``w_q``) and the metrics are
+    averaged over it before the update, so every rank makes the same update.
+    Every rank must pass a generator seeded alike.  With one rank the step
+    computes what the single-process step does, bit for bit."""
     lr_at = lr_schedule(train_cfg)
     bn_at = bn_momentum_schedule(train_cfg)
 
@@ -87,17 +108,22 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, host_project
         mark("inputs")
         # the decay as a float32 scalar, as the JAX package traces it
         bn_momentum = torch.tensor(bn_at(state.step), dtype=torch.float32, device=state.device)
-        out = model(p1, p2, bn_momentum=bn_momentum, stochastic=True, generator=generator)
+        with data_parallel(data_group):
+            out = model(p1, p2, bn_momentum=bn_momentum, stochastic=True, generator=generator)
         loss, metrics = total_loss(out, q_gt, t_gt, state.w_x, state.w_q)
         mark("forward")
         loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if data_group is not None:
+            _average_over(data_group, [p.grad for p in state.parameters()])
+            _average_over(data_group, list(metrics.values()))
         mark("backward")
         for group in state.optimizer.param_groups:
             group["lr"] = lr_at(state.step)
         state.optimizer.step()
         state.step += 1
         mark("optimizer")
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return train_step
 

@@ -1,8 +1,13 @@
 """The training loop: epochs over shuffled frame pairs, periodic validation
 on whole sequences, checkpoints with best-model retention, scalar logs.
 
-The port's copy of ``efficientlo_net_tpu/training/trainer.py``, on one
-device (``device=`` in place of the JAX package's ``use_mesh``).  Batches
+The port's copy of ``efficientlo_net_tpu/training/trainer.py``, on
+``device`` (the current card by default).  In a multi-process run
+(``parallel/distributed.py``, one process per device) with ``use_mesh``,
+it trains data-parallel over a ``data`` mesh of every process: the state is
+replicated from process 0, every process loads the same global batch from
+the same seeded loader and keeps its rows, and validation splits the
+sequences over the processes and aggregates the metric.  Batches
 come from ``PrefetchLoader``, whose workers also quantize (with
 ``quantized_transfer``) and, for a CUDA device, stage each batch in pinned
 memory, through ``device_prefetch``.  With host projection
@@ -33,6 +38,10 @@ from ..data.loader import (PrefetchLoader, device_prefetch, pin_batch, quantize_
 from ..device import resolve_device
 from ..evaluation.runner import evaluate_sequences, mean_t_rel
 from ..models.pwclo import PWCLONet
+from ..parallel.data_parallel import make_sharded_train_step, replicate_state
+from ..parallel.distributed import (aggregate_mean_t_rel, process_count, process_index,
+                                    shard_sequences_by_host)
+from ..parallel.mesh import make_mesh, shard_batch
 from ..pretrained import load_pretrained, variables_to_state_dict
 from ..utils.logging import Logger
 from .checkpoint import CheckpointManager
@@ -53,16 +62,20 @@ class Trainer:
                  log_dir: str, gt_dir: Optional[str] = None,
                  train_list: Sequence[int] = tuple(range(7)),
                  val_list: Sequence[int] = tuple(range(7, 11)), seed: int = 0,
-                 device="cuda"):
+                 device="cuda", use_mesh: bool = True):
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
         self.log_dir = log_dir
         os.makedirs(log_dir, exist_ok=True)
-        self.logger = Logger(os.path.join(log_dir, "log_train.txt"))
-        with open(os.path.join(log_dir, "config.json"), "w") as f:
-            json.dump({"model": dataclasses.asdict(model_cfg),
-                       "train": dataclasses.asdict(train_cfg)}, f, indent=2, default=str)
+        rank = process_index()
+        # every process logs; process 0 to the log the JAX package writes
+        self.logger = Logger(os.path.join(log_dir, "log_train.txt" if rank == 0
+                                          else f"log_train_rank{rank}.txt"))
+        if rank == 0:
+            with open(os.path.join(log_dir, "config.json"), "w") as f:
+                json.dump({"model": dataclasses.asdict(model_cfg),
+                           "train": dataclasses.asdict(train_cfg)}, f, indent=2, default=str)
         self.gt_dir = gt_dir or os.path.join(os.path.dirname(os.path.abspath(data_root)),
                                              "ground_truth_pose")
         self.train_list = list(train_list)
@@ -79,8 +92,15 @@ class Trainer:
         self.state = create_train_state(model, train_cfg, device=self.device)
         self.ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"))
         self.host_projection = train_cfg.resolved_host_projection()
-        self.train_step = make_train_step(model_cfg, train_cfg,
-                                          host_projected=self.host_projection)
+        self.mesh = None
+        if use_mesh and process_count() > 1:
+            self.mesh = make_mesh(device_type=self.device.type)
+            self.state = replicate_state(self.state, self.mesh)
+            self.train_step = make_sharded_train_step(model_cfg, train_cfg, self.mesh,
+                                                      host_projected=self.host_projection)
+        else:
+            self.train_step = make_train_step(model_cfg, train_cfg,
+                                              host_projected=self.host_projection)
         self.eval_step = make_eval_step(model_cfg)
         self.stream_eval_fns = make_streaming_eval_fns(model_cfg)
 
@@ -89,6 +109,8 @@ class Trainer:
         ``path`` is another run's checkpoint directory (a warm start)."""
         mgr = self.ckpt if path is None else CheckpointManager(os.path.abspath(path))
         self.state = mgr.restore(self.state, step)
+        if self.mesh is not None:
+            self.state = replicate_state(self.state, self.mesh)
         saved_epoch = mgr.metadata(step).get("epoch")
         if saved_epoch is not None:
             self.start_epoch = int(saved_epoch) + 1
@@ -108,9 +130,11 @@ class Trainer:
         return meta
 
     def _host_batch(self, batch: dict) -> dict:
-        """The loader workers' last step: int16 clouds (or, host-projected,
-        images) with ``quantized_transfer``; pinned tensors for a CUDA
-        device."""
+        """The loader workers' last step: this process's rows of the global
+        batch on a mesh; int16 clouds (or, host-projected, images) with
+        ``quantized_transfer``; pinned tensors for a CUDA device."""
+        if self.mesh is not None:
+            batch = shard_batch(self.mesh, batch)
         if self.train_cfg.quantized_transfer:
             keys = ("p1", "p2") if self.host_projection else ("pc1", "pc2")
             batch = dict(batch, **{k: quantize_points(batch[k]) for k in keys})
@@ -153,11 +177,16 @@ class Trainer:
         return mean
 
     def validate(self) -> float:
-        """Mean t_rel (%) over the validation sequences, by streaming eval."""
+        """Mean t_rel (%) over the validation sequences, by streaming eval;
+        in a multi-process run each process scores its share of the
+        sequences and every process returns the aggregate."""
         results = evaluate_sequences(
-            self.eval_step, self.state.model, self.dataset, self.val_list, gt_dir=self.gt_dir,
+            self.eval_step, self.state.model, self.dataset,
+            shard_sequences_by_host(self.val_list), gt_dir=self.gt_dir,
             result_dir=os.path.join(self.log_dir, "val"), batch_size=self.train_cfg.batch_size,
             log=self.logger.log, stream_fns=self.stream_eval_fns)
+        if process_count() > 1:
+            return aggregate_mean_t_rel(results)
         return mean_t_rel(results)
 
     def fit(self, max_epoch: Optional[int] = None) -> None:

@@ -15,8 +15,9 @@
   exact; ``variables_from_train_state`` and the Flax layout of
   ``state_dict_to_variables``.
 * Sensor presets, ``ModelConfig`` defaults and ``validate``; the CLI's flags
-  and defaults parse as the JAX package's, and ``--coordinator`` raises
-  until the parallelism slice; ``evaluate_cli`` prints and writes what the
+  and defaults parse as the JAX package's, and ``--coordinator`` joins a
+  process group (tests/test_torch_parallel.py runs it on two ranks);
+  ``evaluate_cli`` prints and writes what the
   JAX package's does; ``write_all_plots`` writes the same files, and
   ``evaluate_sequences(make_plots=True)`` writes them per sequence.
 """
@@ -382,10 +383,33 @@ def test_cli_parses_as_jax(argv):
     assert got == want
 
 
-def test_cli_coordinator_raises_until_parallelism(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCli.main(["--coordinator", "host0:1234", "--log_dir", str(tmp_path / "log")])
-    assert not list(tmp_path.iterdir())
+def test_cli_coordinator_raises_until_parallelism(tmp_path, monkeypatch):
+    """``--coordinator`` no longer raises: since the parallelism slice it
+    joins a process group (here one gloo rank on 127.0.0.1) and hands
+    ``use_mesh`` to the trainer (a stub here), ``--no_mesh`` turning it off."""
+    import torch.distributed as dist
+
+    from efficientlo_net_torch.training import trainer as TTrainer
+    from torch_parallel_cases import free_port
+
+    seen = []
+
+    class StubTrainer:
+        def __init__(self, *args, **kwargs):
+            seen.append((dist.is_initialized() and dist.get_world_size(), kwargs["use_mesh"]))
+
+        def fit(self):
+            pass
+
+    monkeypatch.setattr(TTrainer, "Trainer", StubTrainer)
+    for extra in ([], ["--no_mesh"]):
+        try:
+            TCli.main(["--coordinator", f"127.0.0.1:{free_port()}", "--device", "cpu",
+                       "--log_dir", str(tmp_path / "log")] + extra)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    assert seen == [(1, True), (1, False)]
 
 
 @pytest.fixture(scope="module")
