@@ -151,7 +151,17 @@ printing JSON lines:
    equals ``optimize()``; ms per DP step beside the plain step; (c) two
    gloo ranks spawned on the one card, B=4 each: their step against the
    single B=8 step, parameters after Adam bit-equal across the ranks, ms
-   per step;
+   per step; (d) the ring in training: (a) in the NCCL group of (b), the
+   ring's training forward, loss and backward at B=8 on a ``make_mesh((1,
+   1))`` ring of one against the unsharded pass (losses, gradients and
+   statistics at the train tolerances, 23 + 0 launches, ms of each timed
+   in turns, one profiled pass of each); (b)
+   the training select on every rank's widened block of rings of 3 and 5
+   at the level-0 DownConv call of one push, exact against the plain block
+   version and the unsharded kernel's sector, and its backward through the
+   block gathers folded onto the sectors (``ring.fold_halo_grad``) against
+   the unsharded ``select_and_group(fused=False)`` gradient, 2 + 0
+   launches a block counted; device ms of each block;
 12. the ``kernels`` line (each kernel's launches, times and bound, per path
    and summed), the total seconds, then the card line, then the result
    line.
@@ -163,6 +173,7 @@ check fails.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -703,7 +714,7 @@ def kernels_line(paths, counted, card):
     by kernel); ``counted`` maps an untimed path ("trainer", "sequence_eval",
     "slam", "host_stream", "host_train_step", "host_trainer", the bf16 and
     artifact paths, "ring_blocks", "ring_forward", "dp_step_nccl",
-    "dp_step_gloo") to its
+    "dp_step_gloo", "ring_train", "ring_train_blocks") to its
     launches by kernel, its launches per call by kernel, the unit of a call,
     the calls made, where its calls were checked against the plain versions
     the largest error by kernel, and where it also pushes scans its pushes
@@ -721,7 +732,7 @@ def kernels_line(paths, counted, card):
             per[path] = {"launches": c["launches"][name],
                          f"launches_per_{c['unit']}": c["per_call"][name],
                          "calls": c["calls"][name] if isinstance(c["calls"], dict) else c["calls"]}
-            if "max_abs_err" in c:
+            if name in c.get("max_abs_err", {}):
                 per[path]["max_abs_err"] = c["max_abs_err"][name]
             if "per_push" in c:
                 per[path].update(pushes=c["pushes"], launches_per_push=c["per_push"][name])
@@ -818,19 +829,21 @@ def run_train(ws, step, state, batches, gen):
     return state, out
 
 
-def one_step(ws, nbr, cfg, tcfg, batch, dev, host_projected=False, plain=False):
+def one_step(ws, nbr, cfg, tcfg, batch, dev, host_projected=False, plain=False, step=None):
     """One train step from a fresh state and the generator seed SEED + 3,
-    through the kernel or (``plain``) the plain selects.  Returns (losses,
-    gradients, new batch statistics, launches)."""
+    through the kernel or (``plain``) the plain selects; ``step(state,
+    batch, generator) -> (state, metrics)`` in place of ``make_train_step``'s.
+    Returns (losses, gradients, new batch statistics, launches)."""
     import torch
 
     from efficientlo_net_torch.training.step import make_train_step
 
     state, _ = fresh_train_state(cfg, tcfg, dev)
     gen = torch.Generator(dev).manual_seed(SEED + 3)
+    step = step or make_train_step(cfg, tcfg, host_projected=host_projected)
     with plain_selects(ws, nbr) if plain else contextlib.nullcontext():
         before = dict(ws.launches)
-        state, metrics = make_train_step(cfg, tcfg, host_projected=host_projected)(state, batch, gen)
+        state, metrics = step(state, batch, gen)
         torch.cuda.synchronize()
         launched = {k: ws.launches[k] - before[k] for k in before}
     grads = {k: p.grad for k, p in state.model.named_parameters()}
@@ -2291,6 +2304,22 @@ DP_TIMED_STEPS = 3
 GLOO_RANKS = 2
 GLOO_GRAD_REL = 2e-4
 GLOO_STATS_REL = 1e-6
+# (d) The ring in training.  (a) In the NCCL group of one rank: the ring's
+# training forward, ``total_loss`` and backward on phase 6's batch against the
+# unsharded pass from one state and generator seed (a ring of one: the
+# autograd functions' one-rank branch), held to the TRAIN_* tolerances (the
+# gathers' atomics set the gap), 23 + 0 launches; ms per pass of each, timed
+# in turns over RING_TRAIN_REPS passes at a time, then one pass of each
+# under ``profiled`` (kernels, kernel ms and the top host operators).  (b) The training select on
+# every rank's widened block for RING_SIZES at the level-0 DownConv geometry
+# of one push: idx and mask exact against the plain block version and the
+# unsharded kernel's sector, and the gradient of a random upstream through
+# the block gathers, folded onto the sectors by ``fold_halo_grad``, within
+# RING_TRAIN_GRAD_REL of the unsharded autograd gradient's scale (the bound
+# set by scatter-add order); each block's select and its grouping launch
+# ``window_select`` once each and ``select_and_group`` never.
+RING_TRAIN_REPS = 2
+RING_TRAIN_GRAD_REL = 1e-6
 
 
 def ring_block_phase(ws, cases, calls):
@@ -2404,10 +2433,10 @@ def circle_solve_inputs(dev):
 
 
 def nccl_phase(ws, nbr, cfg, tcfg, scans, batch, single, dev, work):
-    """Phase 11b: an NCCL group of one rank in this process, joined by
-    ``initialize_distributed`` from the environment torchrun would set.
-    Returns (its record, the ring forward's launches, the DP steps'
-    launches, their launches per step)."""
+    """Phase 11b and 11d(a): an NCCL group of one rank in this process,
+    joined by ``initialize_distributed`` from the environment torchrun would
+    set.  Returns (its record, the ring forward's launches, the DP steps'
+    launches, their launches per step, the ring training pass's launches)."""
     import torch
     import torch.distributed as dist
 
@@ -2494,11 +2523,137 @@ def nccl_phase(ws, nbr, cfg, tcfg, scans, batch, single, dev, work):
         check(err <= SOLVE_ATOL, f"optimize(group=) differs from optimize() by {err}")
         out["optimize"] = {"max_abs_diff": err, "chi2": float(hist[-1]),
                            "chi2_single": float(hist1[-1])}
+
+        # phase 11d(a): the ring in training, on the same group
+        out["ring_train"], ring_train_launches = ring_train_phase(ws, cfg, tcfg, batch, dev,
+                                                                  ring_mesh)
     finally:
         dist.destroy_process_group()
         for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
             os.environ.pop(name, None)
-    return out, ring_launches, dp_launches, dp_per_step
+    return out, ring_launches, dp_launches, dp_per_step, ring_train_launches
+
+
+def train_pass(tcfg, ring_group=None):
+    """A train step with no update, as ``one_step``'s ``step``: the training
+    forward of (p1, p2, q_gt, t_gt) inputs (both towers, a scan permutation
+    per first-K select and dropout from the generator, step 0's bn
+    momentum) with its level-0 select on ``ring_group`` (None: unsharded),
+    ``total_loss`` and backward."""
+    import torch
+
+    from efficientlo_net_torch.models.losses import total_loss
+
+    def step(state, inputs, generator):
+        p1, p2, q_gt, t_gt = inputs
+        momentum = torch.tensor(tcfg.bn_momentum(0), dtype=torch.float32, device=p1.device)
+        state.optimizer.zero_grad(set_to_none=True)
+        out = state.model.train()(p1, p2, bn_momentum=momentum, stochastic=True,
+                                  generator=generator, ring_group=ring_group)
+        loss, metrics = total_loss(out, q_gt, t_gt, state.w_x, state.w_q)
+        loss.backward()
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def ring_train_phase(ws, cfg, tcfg, batch, dev, ring_mesh):
+    """Phase 11d(a): the ring's training pass on ``ring_mesh`` against the
+    unsharded one on ``batch``'s projected inputs, counted, timed and
+    profiled.  Returns (its record, the ring pass's launches)."""
+    import torch
+
+    from efficientlo_net_torch.training.step import _forward_inputs
+
+    inputs = _forward_inputs(batch, cfg.sensor, dev)
+    steps = {"ring": train_pass(tcfg, ring_mesh), "plain": train_pass(tcfg)}
+    ring = one_step(ws, None, cfg, tcfg, inputs, dev, step=steps["ring"])
+    launches = ring[3]
+    check(launches == {"window_select": len(TRAIN_SELECT_SITES), "select_and_group": 0},
+          f"the ring training pass launched {launches}")
+    single = one_step(ws, None, cfg, tcfg, inputs, dev, step=steps["plain"])
+    out = compare_steps(ring, single, ("ring training pass", "unsharded training pass"))
+    # each pass again on a state of its own; in turns (ring, plain, plain,
+    # ring, twice) after an untimed round: the card and host drift, and the
+    # first timed block ran slow (PERF.md)
+    runs = {name: functools.partial(step, fresh_train_state(cfg, tcfg, dev)[0], inputs,
+                                    torch.Generator(dev).manual_seed(SEED + 3))
+            for name, step in steps.items()}
+    for run in runs.values():
+        run()
+    times = {name: [] for name in runs}
+    for name in ("ring", "plain", "plain", "ring") * 2:
+        times[name].append(time_ms(runs[name], reps=RING_TRAIN_REPS, repeats=1))
+    out.update(launches=launches, losses_ring=ring[0], losses_single=single[0],
+               batch=tcfg.batch_size, ms_turns=times,
+               ms=statistics.median(t[0] for t in times["ring"]),
+               host_ms=statistics.median(t[1] for t in times["ring"]),
+               plain_ms=statistics.median(t[0] for t in times["plain"]),
+               plain_host_ms=statistics.median(t[1] for t in times["plain"]),
+               profile={name: profiled(runs[name], 1) for name in runs})
+    return out, launches
+
+
+def ring_train_block_phase(ws, cases, down_args):
+    """Phase 11d(b): the ring's training select (the ``window_select`` kernel
+    on each rank's widened block, as ``ring._group_on_block`` runs it
+    unfused) at ``down_args``, the level-0 DownConv call of one push with
+    phase 11a's random scan permutation, given random features of the call's
+    width, for every rank of each ring size (``torch_parallel_cases``'
+    checks).  Every kernel's launches are counted around each block call and
+    each ring's gradient: one ``window_select`` for the checked select and
+    one in the grouping a block, no ``select_and_group``.
+    Returns (rows: each block's device ms beside the unsharded call's, the
+    blocks' launches by kernel, the largest differences, the blocks)."""
+    import torch
+
+    xyz, feats, kernel, k, distance, cs, mode, perm = down_args
+    gen = torch.Generator(xyz.device).manual_seed(SEED + 9)
+    feats = torch.randn(feats.shape, generator=gen, device=xyz.device)
+    gargs = (xyz, feats, kernel, k, distance, cs, mode, perm)
+    sargs = (xyz, xyz, kernel, k, distance, cs, (1, 1), mode, perm)
+    whole_select = ws.window_select(*sargs)
+    whole_ms = graph_ms(lambda: ws.window_select(*sargs))
+    n = whole_select[0].shape[1]
+    upstream = torch.randn((xyz.shape[0], n, k, 3 + feats.shape[-1]), generator=gen,
+                           device=xyz.device)
+    whole = cases.unsharded_group_grads(gargs, upstream)
+    rows, n_blocks = [], 0
+    launched = dict.fromkeys(ws.launches, 0)
+
+    def counted(fn, *args):
+        before = dict(ws.launches)
+        out = fn(*args)
+        torch.cuda.synchronize()
+        for name in launched:
+            launched[name] += ws.launches[name] - before[name]
+        return out
+
+    errors = {"select": 0.0, "groups": 0.0, "grad_xyz_rel": 0.0, "grad_feats_rel": 0.0}
+    for ring_size in RING_SIZES:
+        for r in range(ring_size):
+            call, plain, unsharded = counted(cases.window_select_block, sargs, ring_size, r,
+                                             whole_select)
+            n_blocks += 1
+            check(plain == 0.0 and unsharded == 0.0,
+                  f"training select block (ring {ring_size}, rank {r}) differs from the plain "
+                  f"block version by {plain}, from the unsharded kernel by {unsharded}")
+            errors["select"] = max(errors["select"], plain, unsharded)
+            rows.append({"ring": ring_size, "rank": r, "device_ms": graph_ms(call),
+                         "unsharded_device_ms": whole_ms})
+        groups, grad_xyz, grad_feats = counted(cases.train_block_grads, gargs, ring_size,
+                                               upstream, whole)
+        check(groups == 0.0,
+              f"ring {ring_size}: block groups differ from the unsharded by {groups}")
+        check(grad_xyz <= RING_TRAIN_GRAD_REL and grad_feats <= RING_TRAIN_GRAD_REL,
+              f"ring {ring_size}: folded block gradients differ from the unsharded by "
+              f"{grad_xyz:.3g} (xyz), {grad_feats:.3g} (feats) of their scale")
+        errors.update(groups=max(errors["groups"], groups),
+                      grad_xyz_rel=max(errors["grad_xyz_rel"], grad_xyz),
+                      grad_feats_rel=max(errors["grad_feats_rel"], grad_feats))
+    expected = {"window_select": 2 * n_blocks, "select_and_group": 0}
+    check(launched == expected, f"the training blocks launched {launched}, expected {expected}")
+    return rows, launched, errors, n_blocks
 
 
 def split_sum_reading(cfg, tcfg, batch, dev):
@@ -2707,13 +2862,20 @@ def parallel_phase(ws, nbr, cfg, tcfg, scans, batches, calls, card, dev, work):
     ws.reset_launches()
     rows, block_launches, block_errors, n_blocks = ring_block_phase(ws, cases, calls)
     single = one_step(ws, nbr, cfg, tcfg, batches[0], dev)
-    nccl, ring_launches, dp_launches, dp_per_step = nccl_phase(ws, nbr, cfg, tcfg, scans,
-                                                               batches[0], single, dev, work)
+    nccl, ring_launches, dp_launches, dp_per_step, ring_train_launches = nccl_phase(
+        ws, nbr, cfg, tcfg, scans, batches[0], single, dev, work)
     gloo, gloo_per_step = gloo_phase(cfg, tcfg, batches[0], single, dev, work)
+    t1 = time.perf_counter()
+    train_rows, train_block_launches, train_block_errors, n_train_blocks = \
+        ring_train_block_phase(ws, cases, ring_block_cases(calls)[0][2])
     emit({"phase": "parallel", "config": "ModelConfig() full HDL-64 64x1800",
           "weights": WEIGHTS, "ring_blocks": rows, "ring_block_calls": n_blocks,
           "ring_block_launches": block_launches, "up_conv_crop": list(UP_CROP),
           "nccl_one_rank": nccl, "gloo_two_ranks": gloo,
+          "ring_train_blocks": train_rows, "ring_train_block_calls": n_train_blocks,
+          "ring_train_block_launches": train_block_launches,
+          "ring_train_block_errors": train_block_errors,
+          "ring_train_blocks_seconds": time.perf_counter() - t1,
           "seconds": time.perf_counter() - t0, "card": card})
     push = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES)}
     per_block = {k: block_launches[k] / max(1, n_blocks[k]) for k in push}
@@ -2721,6 +2883,14 @@ def parallel_phase(ws, nbr, cfg, tcfg, scans, batches, calls, card, dev, work):
                             "unit": "block", "calls": n_blocks, "max_abs_err": block_errors},
             "ring_forward": {"launches": ring_launches, "per_call": ring_launches,
                              "unit": "forward", "calls": 1},
+            "ring_train": {"launches": ring_train_launches, "per_call": ring_train_launches,
+                           "unit": "forward_backward", "calls": 1},
+            # select_and_group made no call here, so it has no error to report
+            "ring_train_blocks": {
+                "launches": train_block_launches,
+                "per_call": {k: v / n_train_blocks for k, v in train_block_launches.items()},
+                "unit": "block", "calls": {"window_select": n_train_blocks, "select_and_group": 0},
+                "max_abs_err": {"window_select": train_block_errors["select"]}},
             "dp_step_nccl": {"launches": dp_launches, "per_call": dp_per_step, "unit": "step",
                              "calls": nccl["dp_step"]["steps"]},
             "dp_step_gloo": {"launches": {k: sum(r[k] for r in gloo["launches"]) for k in push},

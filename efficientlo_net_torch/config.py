@@ -177,8 +177,9 @@ def sensor_preset(name: str) -> SensorConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimization hyperparameters, the port's copy of the JAX package's
-    ``TrainConfig`` (same defaults).  The schedules are in
-    ``training/state.py``."""
+    ``TrainConfig`` (same defaults), with its two schedules
+    (``learning_rate``, ``bn_momentum``), which ``training/state.py``
+    wraps."""
 
     batch_size: int = 8
     base_learning_rate: float = 1e-3
@@ -223,3 +224,17 @@ class TrainConfig:
         from .data import native_io
 
         return native_io.available()
+
+    def learning_rate(self, step: int) -> float:
+        """Learning rate of the update after ``step`` earlier ones: staircase
+        exponential decay on samples seen, floored."""
+        samples = step * self.batch_size
+        lr = self.base_learning_rate * self.lr_decay_rate ** (samples // self.lr_decay_step)
+        return max(lr, self.lr_floor)
+
+    def bn_momentum(self, step: int) -> float:
+        """Batch-norm EMA decay at ``step``: the ``m`` of ``running = m *
+        running + (1 - m) * batch_stat``."""
+        samples = step * self.batch_size
+        mom = self.bn_init_decay * self.bn_decay_rate ** (samples // self.bn_decay_step)
+        return min(self.bn_decay_clip, 1.0 - mom)

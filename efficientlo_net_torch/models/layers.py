@@ -184,7 +184,9 @@ class DownConv(nn.Module):
     reach the source features.  ``select_fn`` replaces the select + group
     (the W-axis ring's ``parallel.ring.ring_select_and_group_replicated``):
     it takes (xyz, feats, kernel_size, k, distance, center_stride=, mode=,
-    perm=) and returns (xyz_group, feat_group, mask)."""
+    perm=, fused=) and returns (xyz_group, feat_group, mask); it is given
+    ``fused=not training`` as the unsharded select is, so the ring groups
+    with gradients in training."""
 
     def __init__(self, in_features: int, kernel_size: Tuple[int, int], k: int,
                  distance: float, mlp: Sequence[int], out_hw: Tuple[int, int],
@@ -204,6 +206,7 @@ class DownConv(nn.Module):
             xyz_group, feat_group, mask = select_fn(
                 xyz_proj, feat_proj, self.kernel_size, self.k, self.distance,
                 center_stride=tuple(stride_hw), mode=nbr.FIRST_K, perm=perm,
+                fused=not self.training,
             )
         else:
             xyz_group, feat_group, mask = nbr.select_and_group(

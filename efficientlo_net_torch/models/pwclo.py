@@ -159,8 +159,9 @@ class PWCLONet(nn.Module):
         (xyz_proj, feat, feat_proj).  With ``ring_group`` (a ``DeviceMesh``
         with a "ring" dimension, or the ring's process group) the
         full-resolution level-0 select, by far the heaviest, runs W-axis
-        ring-sharded (``parallel/ring.py``), its groups gathered back; the
-        coarser levels are small and stay replicated."""
+        ring-sharded (``parallel/ring.py``), its groups gathered back (with
+        gradients in training); the coarser levels are small and stay
+        replicated."""
         cfg = self.cfg
         shapes = cfg.level_shapes
         feats = []
@@ -197,17 +198,28 @@ class PWCLONet(nn.Module):
         In training it runs twice, frame 1 then frame 2: batch statistics
         over a merged 2B batch would differ, and the shared layers update
         their running statistics once per frame, in that order.
-        ``ring_group`` (eval only) ring-shards the level-0 select, see
-        ``_pyramid``; every rank of the ring passes both whole frames and
-        gets the whole output."""
+
+        ``ring_group`` ring-shards the level-0 select of both towers (see
+        ``_pyramid``), in eval and in training.  Its contract:
+
+        * every rank of the ring passes the whole batch of both frames and
+          gets the whole output; in training every rank computes the same
+          loss and gets the same gradients (none of them passes the ring:
+          the level-0 inputs are the projected images and zero features);
+        * every rank seeds its ``generator`` alike, so that
+          ``stochastic=True`` draws the same scan permutations and dropout
+          masks on every rank;
+        * with a 2-D (data, ring) ``DeviceMesh`` the data dimension only
+          splits the select's work: every rank still holds the whole batch.
+
+        A data-parallel step (``make_train_step(data_group=)``) holds other
+        rows on each data rank: there ``ring_group`` must be the ring's
+        process group (``mesh.get_group("ring")``), never the 2-D mesh,
+        whose data dimension would gather the rows of other batches."""
         kw = dict(bn_momentum=bn_momentum, stochastic=stochastic, generator=generator)
         if self.training:
-            if ring_group is not None:
-                raise NotImplementedError(
-                    "the W-axis ring in training needs the backward of the halo exchange "
-                    "and of the sector gather (ROADMAP.md, Queue 1: the ring in training)")
-            f1 = self._pyramid(proj_f1, **kw)
-            f2 = self._pyramid(proj_f2, **kw)
+            f1 = self._pyramid(proj_f1, ring_group=ring_group, **kw)
+            f2 = self._pyramid(proj_f2, ring_group=ring_group, **kw)
         else:
             b = proj_f1.shape[0]
             fb = self._pyramid(torch.cat([proj_f1, proj_f2], dim=0), ring_group=ring_group, **kw)

@@ -49,6 +49,15 @@ def window_offsets(kernel_h: int, kernel_w: int) -> np.ndarray:
     return np.stack([idx // kernel_w - kh_half, idx % kernel_w - kw_half], axis=-1)
 
 
+def grid_centers(height: int, width: int, stride_h: int = 1, stride_w: int = 1) -> np.ndarray:
+    """(N, 2) int32 centre coordinates (row, column): every (stride_h,
+    stride_w)-th pixel of a (height, width) grid, in raster order."""
+    hh = np.arange(0, height, stride_h)
+    ww = np.arange(0, width, stride_w)
+    h_grid, w_grid = np.meshgrid(hh, ww, indexing="ij")
+    return np.stack([h_grid.reshape(-1), w_grid.reshape(-1)], axis=-1).astype(np.int32)
+
+
 def _window_index(h1, w1, h2, w2, kernel_size, center_stride, source_stride, device):
     """Flat grid-2 index (N, T) of every window slot of every centre, and
     whether its row lies inside grid 2.  Centre (i, j) is grid-1 pixel
@@ -150,6 +159,60 @@ def select_neighbors_plain(
     top_scores, top_t = _iterative_top_k(score, k)
     mask = top_scores > threshold
     idx = torch.gather(flat.expand(b, n, t), 2, top_t)
+    idx = torch.where(mask, idx, 0).to(torch.int32)
+    return idx, mask[..., None].to(xyz1.dtype)
+
+
+def fill_empty_slots_with_first(idx: torch.Tensor, mask: torch.Tensor):
+    """The reference CUDA ops' ``flag_copy=1`` mode: every empty slot of a
+    centre that selected anything takes its first neighbour, and its mask
+    becomes full.  idx (B, N, K), mask (B, N, K, 1); returns both.  No call
+    site of the network uses it (they all select with ``flag_copy=0``)."""
+    has_any = mask[:, :, :1, :] > 0   # slot 0 is filled iff any slot is
+    filled = torch.where(mask[..., 0] > 0, idx, idx[:, :, :1])
+    new_mask = torch.where(has_any, torch.ones_like(mask), mask)
+    return torch.where(has_any[..., 0], filled, idx), new_mask
+
+
+def select_neighbors_at(xyz1, xyz2, centers_hw, kernel_size, k, distance, stride=(1, 1),
+                        mode=KNN, perm=None):
+    """The plain select at explicit centres, a test oracle: ``centers_hw``
+    (N, 2) holds any grid-1 pixels (row, column), not only a strided grid;
+    centre (h, w) scans the window of grid 2 based at (h // sh, w // sw) of
+    ``stride``, in the scan order ``perm`` permutes.  Returns (idx (B, N, K)
+    int32 flat into H2*W2, 0 where masked; mask (B, N, K, 1))."""
+    b, h1, w1, _ = xyz1.shape
+    _, h2, w2, _ = xyz2.shape
+    kh, kw = kernel_size
+    t = kh * kw
+    sh, sw = stride
+    dev = xyz1.device
+    centres = torch.as_tensor(centers_hw, dtype=torch.long, device=dev)
+    offs = torch.as_tensor(window_offsets(kh, kw), device=dev)
+    if perm is not None:
+        offs = offs[torch.as_tensor(perm, device=dev).long()]
+    cand_h = (centres[:, 0] // sh)[:, None] + offs[None, :, 0]                  # (N, T)
+    cand_w = torch.remainder((centres[:, 1] // sw)[:, None] + offs[None, :, 1], w2)
+    in_bounds = (cand_h >= 0) & (cand_h < h2)
+    cand_flat = cand_h.clamp(0, h2 - 1) * w2 + cand_w
+
+    centre = xyz1.reshape(b, h1 * w1, 3)[:, centres[:, 0] * w1 + centres[:, 1]]  # (B, N, 3)
+    cand = xyz2.reshape(b, h2 * w2, 3)[:, cand_flat]                             # (B, N, T, 3)
+    d_sq = torch.clamp(_sq3(cand - centre[:, :, None, :]), min=_VALID_EPS)
+    ok = (in_bounds[None] & (_sq3(cand) > _VALID_EPS) & (d_sq <= distance * distance)
+          & (_sq3(centre) > _VALID_EPS)[:, :, None])
+    if mode == FIRST_K:
+        pos = torch.arange(t, dtype=torch.float32, device=dev)
+        score = torch.where(ok, t - pos, -1.0)
+        threshold = 0.0
+    elif mode == KNN:
+        score = torch.where(ok, -d_sq, -torch.inf)
+        threshold = -torch.inf
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    top_scores, top_t = _iterative_top_k(score, k)
+    mask = top_scores > threshold
+    idx = torch.gather(cand_flat.expand(b, *cand_flat.shape), 2, top_t)
     idx = torch.where(mask, idx, 0).to(torch.int32)
     return idx, mask[..., None].to(xyz1.dtype)
 

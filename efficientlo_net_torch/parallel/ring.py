@@ -18,6 +18,18 @@ selects run the CUDA kernels of ``ops/window_select.py`` on the widened
 block (their centre and source column offsets and centre count); the plain
 block version ``_select_on_block`` serves CPU tensors only.
 
+Gradients.  ``halo_exchange_w``, ``shard_w`` and ``gather_w`` are autograd
+functions: the halo exchange's backward returns each received halo's
+gradient to the rank that owns those columns (``fold_halo_grad``), and
+``shard_w`` and ``gather_w`` are each other's duals (the one's backward
+all-gathers the sector gradients, the other's keeps this rank's sector of
+the incoming gradient).  The contract is the replicated one of
+``ring_select_and_group_replicated``: every rank passes the whole arrays
+and computes the same loss from the whole result, so every rank ends with
+the whole input gradient, as JAX's global ``jax.grad`` gives it.
+``ring_select_and_group``'s grouped values carry the gradient into ``xyz``
+and ``feats``; indices and masks carry none.
+
 Divisibility (``_validate``, ValueError as in the JAX package): R divides
 both grid widths and the centre count, centre columns tile W1, a strided
 source maps W1 onto W2, and halo <= W2 / R (one hop).
@@ -45,32 +57,70 @@ def _rank_in(group) -> Tuple[int, int]:
     return dist.get_rank(group), dist.get_world_size(group)
 
 
-def halo_exchange_w(x: torch.Tensor, halo: int, group) -> torch.Tensor:
-    """Widen a (B, H, W_loc, C) block with ``halo`` columns from each ring
-    neighbour: two sends and two receives in one ``batch_isend_irecv``.
-    With one rank the block wraps onto itself (a cylinder of one sector)."""
-    if halo == 0:
-        return x
+def _swap_edges(to_right: torch.Tensor, to_left: torch.Tensor, group, tags: Tuple[int, int]):
+    """Send ``to_right`` to the right ring neighbour and ``to_left`` to the
+    left one; returns (what the left neighbour sent right, what the right
+    neighbour sent left).  Two sends and two receives in one
+    ``batch_isend_irecv``; with one rank each side receives its own."""
     index, n = _rank_in(group)
-    left_edge = x[:, :, :halo].contiguous()
-    right_edge = x[:, :, -halo:].contiguous()
     if n == 1:
-        return torch.cat([right_edge, x, left_edge], dim=2)
+        return to_right, to_left
     # peers by global rank; in a ring of two both neighbours are one rank, so
     # the two directions differ in tag (gloo) and in posting order (NCCL)
     right = dist.get_global_rank(group, (index + 1) % n)
     left = dist.get_global_rank(group, (index - 1) % n)
-    from_left = torch.empty_like(right_edge)
-    from_right = torch.empty_like(left_edge)
+    from_left = torch.empty_like(to_right)
+    from_right = torch.empty_like(to_left)
     ops = [
-        dist.P2POp(dist.isend, right_edge, right, group, tag=1),   # my right edge: its left halo
-        dist.P2POp(dist.irecv, from_left, left, group, tag=1),
-        dist.P2POp(dist.isend, left_edge, left, group, tag=2),     # my left edge: its right halo
-        dist.P2POp(dist.irecv, from_right, right, group, tag=2),
+        dist.P2POp(dist.isend, to_right, right, group, tag=tags[0]),
+        dist.P2POp(dist.irecv, from_left, left, group, tag=tags[0]),
+        dist.P2POp(dist.isend, to_left, left, group, tag=tags[1]),
+        dist.P2POp(dist.irecv, from_right, right, group, tag=tags[1]),
     ]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return torch.cat([from_left, x, from_right], dim=2)
+    return from_left, from_right
+
+
+def fold_halo_grad(grad_wide: torch.Tensor, halo: int, from_left: torch.Tensor,
+                   from_right: torch.Tensor) -> torch.Tensor:
+    """The gradient of a rank's sector from that of its widened block
+    (B, H, halo + W_loc + halo, C): the middle columns, plus on the first
+    ``halo`` columns ``from_left`` (the left neighbour's right-halo
+    gradient: those columns were its right halo) and on the last ``halo``
+    ``from_right`` (the right neighbour's left-halo gradient)."""
+    out = grad_wide[:, :, halo:grad_wide.shape[2] - halo].clone()
+    out[:, :, :halo] += from_left
+    out[:, :, -halo:] += from_right
+    return out
+
+
+class _HaloExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, halo, group):
+        ctx.halo, ctx.group = halo, group
+        # my right edge is my right neighbour's left halo, and vice versa
+        from_left, from_right = _swap_edges(x[:, :, -halo:].contiguous(),
+                                            x[:, :, :halo].contiguous(), group, (1, 2))
+        return torch.cat([from_left, x, from_right], dim=2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        halo = ctx.halo
+        # each halo's gradient goes back to the rank whose edge it was
+        from_left, from_right = _swap_edges(grad[:, :, -halo:].contiguous(),
+                                            grad[:, :, :halo].contiguous(), ctx.group, (3, 4))
+        return fold_halo_grad(grad, halo, from_left, from_right), None, None
+
+
+def halo_exchange_w(x: torch.Tensor, halo: int, group) -> torch.Tensor:
+    """Widen a (B, H, W_loc, C) block with ``halo`` columns from each ring
+    neighbour: (B, H, halo + W_loc + halo, C).  With one rank the block
+    wraps onto itself (a cylinder of one sector).  Its backward folds the
+    widened block's gradient back onto the sectors (``fold_halo_grad``)."""
+    if halo == 0:
+        return x
+    return _HaloExchange.apply(x, halo, group)
 
 
 def _select_on_block(
@@ -233,6 +283,54 @@ def ring_select_neighbors(
     return idx.reshape(b, n_h, n_w_loc, k), mask.reshape(b, n_h, n_w_loc, k, 1)
 
 
+def _group_on_block(xyz_blk, src_wide, ring_index, *, kernel_size, k, distance, center_stride,
+                    mode, perm, halo, w, h, fused):
+    """One rank's select + grouping on its halo-widened [xyz | feats] block
+    ``src_wide`` (B, H, halo + W_loc + halo, 3 + C), for the centres of its
+    sector ``xyz_blk`` (B, H, W_loc, 3).  Returns (grouped_xyz, grouped_feat,
+    mask), each (B, n_h, n_w_loc, K, ...).
+
+    ``fused`` on the card: the ``select_and_group`` kernel, whose values
+    carry no gradient.  Otherwise, and for CPU tensors, the
+    ``window_select`` kernel (CUDA) or ``_select_on_block`` (CPU) selects,
+    and a gather from ``src_wide`` groups, so the values carry the gradient
+    into it."""
+    b = xyz_blk.shape[0]
+    c = src_wide.shape[-1] - 3
+    csh, csw = center_stride
+    n_h = -(-h // csh)
+    n_w_loc = xyz_blk.shape[2] // csw
+    n_loc = n_h * n_w_loc
+    xyz_wide = src_wide[..., :3].detach().contiguous()
+    if xyz_blk.is_cuda and fused:
+        gx, gf, m = ws.select_and_group(
+            xyz_wide, src_wide[..., 3:].detach().contiguous(), kernel_size, k, float(distance),
+            center_stride, mode, perm, centre_col_offset=halo, source_col_offset=halo, n_w=n_w_loc,
+        )
+    else:
+        if xyz_blk.is_cuda:
+            idx_local, m = ws.window_select(
+                xyz_blk.detach().contiguous(), xyz_wide, kernel_size, k, float(distance),
+                center_stride, (1, 1), mode, perm,
+                centre_col_offset=0, source_col_offset=halo, n_w=n_w_loc,
+            )
+        else:
+            _, m, idx_local = _select_on_block(
+                xyz_blk.detach(), xyz_wide, ring_index,
+                kernel_size=kernel_size, k=k, distance=float(distance),
+                center_stride=center_stride, source_stride=(1, 1),
+                halo=halo, w1=w, w2=w, h2=h, mode=mode, perm=perm,
+            )
+        flat_wide = src_wide.reshape(b, -1, 3 + c)
+        sel = torch.gather(flat_wide, 1, idx_local.reshape(b, n_loc * k, 1).long()
+                           .expand(b, n_loc * k, 3 + c)).reshape(b, n_loc, k, 3 + c)
+        m = m.reshape(b, n_loc, k, 1)
+        sel = sel * m
+        gx, gf = sel[..., :3], sel[..., 3:]
+    return (gx.reshape(b, n_h, n_w_loc, k, 3), gf.reshape(b, n_h, n_w_loc, k, c),
+            m.reshape(b, n_h, n_w_loc, k, 1))
+
+
 def ring_select_and_group(
     xyz: torch.Tensor,
     feats: torch.Tensor,
@@ -245,52 +343,33 @@ def ring_select_and_group(
     center_stride: Tuple[int, int] = (1, 1),
     mode: str = FIRST_K,
     perm: Optional[torch.Tensor] = None,
+    fused: bool = False,
 ):
-    """Ring-sharded fused select + grouping (the DownConv front end) on this
+    """Ring-sharded select + grouping (the DownConv front end) on this
     rank's blocks xyz (B, H, W/R, 3) and feats (B, H, W/R, C).
 
     The values come from the halo-widened block itself, never from a global
     gather.  Returns this rank's centre sector (grouped_xyz (B, n_h, n_w/R,
     K, 3), grouped_feat (B, n_h, n_w/R, K, C), mask (B, n_h, n_w/R, K, 1)),
-    equal to those rows of ``ops.neighbors.select_and_group``; no gradient.
-    CUDA tensors go through the ``select_and_group`` kernel, CPU tensors
-    through ``_select_on_block`` and a gather."""
+    equal to those rows of ``ops.neighbors.select_and_group``.  As there,
+    ``fused=True`` (eval) groups CUDA tensors with the fused
+    ``select_and_group`` kernel, whose values carry no gradient;
+    ``fused=False`` (training) selects with the ``window_select`` kernel and
+    gathers, so the values carry the gradient into ``xyz`` and ``feats``,
+    through the halo exchange.  CPU tensors select with the plain
+    ``_select_on_block`` and gather either way."""
     group = axis_group(mesh, ring_axis)
     ring_index, ring_size = _rank_in(group)
-    b, h, w_loc, _ = xyz.shape
-    c = feats.shape[-1]
+    h, w_loc = xyz.shape[1:3]
     kh, kw = kernel_size
     csh, csw = center_stride
     w = w_loc * ring_size
-    n_h = -(-h // csh)
     n_w = -(-w // csw)
     halo = _validate(w, w, n_w, csw, 1, kw, ring_size)
-    n_w_loc = n_w // ring_size
-
-    src_wide = halo_exchange_w(torch.cat([xyz, feats], dim=-1).detach(), halo, group)
-    xyz_wide = src_wide[..., :3].contiguous()
-    if xyz.is_cuda:
-        gx, gf, m = ws.select_and_group(
-            xyz_wide, src_wide[..., 3:].contiguous(), (kh, kw), k, float(distance),
-            (csh, csw), mode, perm,
-            centre_col_offset=halo, source_col_offset=halo, n_w=n_w_loc,
-        )
-    else:
-        _, mask5, idx_local = _select_on_block(
-            xyz.detach(), xyz_wide, ring_index,
-            kernel_size=(kh, kw), k=k, distance=float(distance),
-            center_stride=(csh, csw), source_stride=(1, 1),
-            halo=halo, w1=w, w2=w, h2=h, mode=mode, perm=perm,
-        )
-        n_loc = n_h * n_w_loc
-        flat_wide = src_wide.reshape(b, -1, 3 + c)
-        sel = torch.gather(flat_wide, 1, idx_local.reshape(b, n_loc * k, 1).long()
-                           .expand(b, n_loc * k, 3 + c)).reshape(b, n_loc, k, 3 + c)
-        m = mask5.reshape(b, n_loc, k, 1)
-        sel = sel * m
-        gx, gf = sel[..., :3], sel[..., 3:]
-    return (gx.reshape(b, n_h, n_w_loc, k, 3), gf.reshape(b, n_h, n_w_loc, k, c),
-            m.reshape(b, n_h, n_w_loc, k, 1))
+    src_wide = halo_exchange_w(torch.cat([xyz, feats], dim=-1), halo, group)
+    return _group_on_block(xyz, src_wide, ring_index, kernel_size=(kh, kw), k=k,
+                           distance=distance, center_stride=(csh, csw), mode=mode, perm=perm,
+                           halo=halo, w=w, h=h, fused=fused)
 
 
 def _data_split(mesh, b: int):
@@ -304,16 +383,17 @@ def _data_split(mesh, b: int):
     return None, 0, 1
 
 
-def shard_w(x: torch.Tensor, mesh, ring_axis: str = RING_AXIS) -> torch.Tensor:
-    """This rank's W sector of a replicated (B, H, W, ...) array (and its
-    rows where the mesh's data dimension splits B)."""
+def _sector_slices(mesh, ring_axis, b: int, w: int):
+    """(rows, columns) of this rank's part of a replicated (b, ., w, ...)
+    array: its W sector, and its rows where the mesh's data dimension
+    splits ``b``."""
     ring_index, ring_size = _rank_in(axis_group(mesh, ring_axis))
-    w = x.shape[2]
     if w % ring_size:
         raise ValueError(f"ring size {ring_size} must divide the grid width {w}")
-    _, row, rows = _data_split(mesh, x.shape[0])
-    b_loc, w_loc = x.shape[0] // rows, w // ring_size
-    return x[row * b_loc:(row + 1) * b_loc, :, ring_index * w_loc:(ring_index + 1) * w_loc]
+    _, row, rows = _data_split(mesh, b)
+    b_loc, w_loc = b // rows, w // ring_size
+    return (slice(row * b_loc, (row + 1) * b_loc),
+            slice(ring_index * w_loc, (ring_index + 1) * w_loc))
 
 
 def _all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -322,38 +402,84 @@ def _all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def _gather_sectors(x: torch.Tensor, mesh, ring_axis: str, b: int) -> torch.Tensor:
+    """Every rank's (rows, sector) part concatenated back: along W over the
+    ring, then along the rows over the data dimension where it split the
+    ``b`` global rows."""
+    group = axis_group(mesh, ring_axis)
+    if _rank_in(group)[1] > 1:
+        x = _all_gather_cat(x, group, 2)
+    data_group, _, rows = _data_split(mesh, b)
+    if rows > 1:
+        x = _all_gather_cat(x, data_group, 0)
+    return x
+
+
+class _ShardW(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, ring_axis):
+        ctx.mesh, ctx.ring_axis, ctx.b = mesh, ring_axis, x.shape[0]
+        rows, cols = _sector_slices(mesh, ring_axis, x.shape[0], x.shape[2])
+        return x[rows, :, cols]
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank's sector gradient: the whole input's, on every rank
+        return _gather_sectors(grad, ctx.mesh, ctx.ring_axis, ctx.b), None, None
+
+
+class _GatherW(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, ring_axis, batch):
+        ctx.mesh, ctx.ring_axis = mesh, ring_axis
+        out = _gather_sectors(x, mesh, ring_axis, batch)
+        ctx.b, ctx.w = out.shape[0], out.shape[2]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank computed the same loss from the whole output: this
+        # rank's share of its gradient is its own sector's, not a sum
+        rows, cols = _sector_slices(ctx.mesh, ctx.ring_axis, ctx.b, ctx.w)
+        return grad[rows, :, cols].contiguous(), None, None, None
+
+
+def shard_w(x: torch.Tensor, mesh, ring_axis: str = RING_AXIS) -> torch.Tensor:
+    """This rank's W sector of a replicated (B, H, W, ...) array (and its
+    rows where the mesh's data dimension splits B).  Its backward
+    all-gathers the sectors' gradients: every rank gets the whole input's."""
+    return _ShardW.apply(x, mesh, ring_axis)
+
+
 def gather_w(x: torch.Tensor, mesh, ring_axis: str = RING_AXIS, batch: Optional[int] = None
              ) -> torch.Tensor:
     """The inverse of ``shard_w`` for a ring function's output
     (B_loc, n_h, n_w/R, ...): every rank's sectors concatenated along W in
     raster order, and, where the data dimension split the ``batch`` global
-    rows (default: B_loc times the data size), the rows too."""
-    group = axis_group(mesh, ring_axis)
-    if _rank_in(group)[1] > 1:
-        x = _all_gather_cat(x, group, 2)
-    if isinstance(mesh, DeviceMesh):
-        count = batch_sharding(mesh)[1]
-        data_group, _, rows = _data_split(mesh, x.shape[0] * count if batch is None else batch)
-        if rows > 1:
-            x = _all_gather_cat(x, data_group, 0)
-    return x
+    rows (default: B_loc times the data size), the rows too.  Its backward
+    keeps this rank's sector (and rows) of the incoming gradient."""
+    if batch is None:
+        batch = x.shape[0] * batch_sharding(mesh)[1] if isinstance(mesh, DeviceMesh) else x.shape[0]
+    return _GatherW.apply(x, mesh, ring_axis, batch)
 
 
 def ring_select_and_group_replicated(xyz, feats, kernel_size, k, distance, *, mesh,
                                      ring_axis: str = RING_AXIS, center_stride=(1, 1),
-                                     mode: str = FIRST_K, perm=None):
+                                     mode: str = FIRST_K, perm=None, fused: bool = False):
     """``ring_select_and_group`` on replicated arrays: every rank passes the
     whole (B, H, W, ...) grids and gets the whole (B, N, K, ...) groups,
     as the JAX package's ``shard_map`` returns them (``DownConv``'s
     ``select_fn`` in a ring forward).  Each rank selects for its sector
-    (and rows), and the outputs are gathered."""
+    (and rows), and the outputs are gathered.  With ``fused=False`` the
+    groups are differentiable: every rank computing the same loss from them
+    gets the whole gradient of ``xyz`` and ``feats``."""
     b, h, w, _ = xyz.shape
     ring_size = _rank_in(axis_group(mesh, ring_axis))[1]
     n_w = -(-w // center_stride[1])
     _validate(w, w, n_w, center_stride[1], 1, kernel_size[1], ring_size)
     out = ring_select_and_group(shard_w(xyz, mesh, ring_axis), shard_w(feats, mesh, ring_axis),
                                 kernel_size, k, distance, mesh=mesh, ring_axis=ring_axis,
-                                center_stride=center_stride, mode=mode, perm=perm)
+                                center_stride=center_stride, mode=mode, perm=perm, fused=fused)
     n = -(-h // center_stride[0]) * n_w
     return tuple(gather_w(o, mesh, ring_axis, batch=b).reshape(b, n, k, o.shape[-1])
                  for o in out)

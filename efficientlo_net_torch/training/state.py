@@ -19,27 +19,14 @@ from ..device import resolve_device
 
 
 def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
-    """Learning rate of the update after ``step`` earlier ones: staircase
-    exponential decay on samples seen, floored."""
-
-    def schedule(step: int) -> float:
-        samples = step * cfg.batch_size
-        lr = cfg.base_learning_rate * cfg.lr_decay_rate ** (samples // cfg.lr_decay_step)
-        return max(lr, cfg.lr_floor)
-
-    return schedule
+    """Learning rate of the update after ``step`` earlier ones
+    (``TrainConfig.learning_rate``)."""
+    return cfg.learning_rate
 
 
 def bn_momentum_schedule(cfg: TrainConfig) -> Callable[[int], float]:
-    """Batch-norm EMA decay at ``step``: the ``m`` of ``running = m *
-    running + (1 - m) * batch_stat``."""
-
-    def schedule(step: int) -> float:
-        samples = step * cfg.batch_size
-        mom = cfg.bn_init_decay * cfg.bn_decay_rate ** (samples // cfg.bn_decay_step)
-        return min(cfg.bn_decay_clip, 1.0 - mom)
-
-    return schedule
+    """Batch-norm EMA decay at ``step`` (``TrainConfig.bn_momentum``)."""
+    return cfg.bn_momentum
 
 
 def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:

@@ -4,7 +4,11 @@ Quaternions (atol 1e-6: float32 products in another order), the packed
 projection (exact, but for points within 1e-4 of a pixel boundary, where
 atan2/asin ulps differ between the two backends) and the plain neighbour
 selects (exact K sets and masks) against the JAX fast path, the Pallas
-kernels in interpret mode and the numpy oracle.
+kernels in interpret mode and the numpy oracle; ``grid_centers``,
+``fill_empty_slots_with_first`` and ``select_neighbors_at`` exactly, and
+the schedules of ``TrainConfig`` within 1e-7 (JAX's are float32).  Then
+every public top-level name of the JAX package's modules, read with
+``ast``, against its port counterpart's.
 """
 
 import ast
@@ -19,11 +23,14 @@ import pytest
 import torch
 
 from efficientlo_net_torch.config import SensorConfig as TSensor
+from efficientlo_net_torch.config import TrainConfig as TTrainConfig
 from efficientlo_net_torch.ops import neighbors as TN
 from efficientlo_net_torch.ops import projection as TP
 from efficientlo_net_torch.ops import quaternion as TQ
 from efficientlo_net_torch.ops import window_select
+from efficientlo_net_torch.training import state as TState
 from efficientlo_net_tpu.config import SensorConfig as JSensor
+from efficientlo_net_tpu.config import TrainConfig as JTrainConfig
 from efficientlo_net_tpu.ops import neighbors as JN
 from efficientlo_net_tpu.ops import quaternion as JQ
 from efficientlo_net_tpu.ops.pallas_select import pallas_select_and_group, pallas_window_select
@@ -194,6 +201,68 @@ def test_gather_by_index_matches_jax():
     np.testing.assert_array_equal(TN.gather_by_index(t(img), t(idx)).numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("hw,stride", [((8, 16), (1, 1)), ((64, 1800), (4, 8)), ((7, 10), (2, 3))])
+def test_grid_centers_matches_jax(hw, stride):
+    got, want = TN.grid_centers(*hw, *stride), JN.grid_centers(*hw, *stride)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_fill_empty_slots_with_first_matches_jax():
+    """Random idx and masks whose slots fill from the front, with rows that
+    are empty, partly filled and full."""
+    rng = np.random.default_rng(6)
+    b, n, k = 3, 40, 6
+    idx = rng.integers(0, 500, (b, n, k)).astype(np.int32)
+    filled = rng.integers(0, k + 1, (b, n))
+    filled[0, :3] = [0, k, 1]
+    mask = (np.arange(k) < filled[..., None]).astype(np.float32)[..., None]
+    idx = np.where(mask[..., 0] > 0, idx, 0).astype(np.int32)
+    got = TN.fill_empty_slots_with_first(t(idx), t(mask))
+    want = JN.fill_empty_slots_with_first(jnp.asarray(idx), jnp.asarray(mask))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (filled == 0).any() and (filled == k).any() and ((filled > 0) & (filled < k)).any()
+
+
+@pytest.mark.parametrize("stride", [(1, 1), (2, 2)])
+@pytest.mark.parametrize("mode,with_perm", MODES)
+def test_select_neighbors_at_matches_jax(mode, with_perm, stride):
+    """Explicit centres off any strided grid (random pixels, repeats and
+    the seam's columns among them), against the JAX oracle exactly."""
+    rng = np.random.default_rng(9)
+    g1, g2 = make_grids(rng, b=2, h1=8, w1=16, h2=8 // stride[0], w2=16 // stride[1])
+    centres = np.concatenate([rng.integers(0, [8, 16], (20, 2)), [[0, 0], [7, 15], [3, 0], [3, 0]]])
+    perm = rng.permutation(15) if with_perm else None
+    got = TN.select_neighbors_at(t(g1), t(g2), centres, (3, 5), 4, 3.0, stride=stride, mode=mode,
+                                 perm=None if perm is None else t(perm))
+    want = JN.select_neighbors_at(jnp.asarray(g1), jnp.asarray(g2), centres, (3, 5), 4, 3.0,
+                                  stride=stride, mode=mode,
+                                  perm=None if perm is None else jnp.asarray(perm))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert 0 < float(got[1].sum()) < got[1].numel()
+
+
+@pytest.mark.parametrize("batch_size", [2, 8])
+def test_train_config_schedules_match_jax(batch_size):
+    """``TrainConfig.learning_rate`` and ``.bn_momentum`` at steps 0 to 1e5
+    (every decay boundary and its neighbours among them): Python floats
+    within 1e-7 of JAX's float32 values, and the schedules of
+    ``training/state.py`` are these methods."""
+    cfg, j_cfg = TTrainConfig(batch_size=batch_size), JTrainConfig(batch_size=batch_size)
+    edges = [e * cfg.lr_decay_step // batch_size + d for e in range(1, 5) for d in (-1, 0, 1)]
+    steps = sorted({*range(0, 100001, 2500), *edges, 100000})
+    for step in steps:
+        for name in ("learning_rate", "bn_momentum"):
+            got = getattr(cfg, name)(step)
+            assert type(got) is float, (name, step)
+            np.testing.assert_allclose(got, float(getattr(j_cfg, name)(step)), rtol=0, atol=1e-7,
+                                       err_msg=f"{name} at step {step}")
+        assert TState.lr_schedule(cfg)(step) == cfg.learning_rate(step)
+        assert TState.bn_momentum_schedule(cfg)(step) == cfg.bn_momentum(step)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers never run a plain fallback: a CPU tensor raises
     before anything is built or launched."""
@@ -239,3 +308,60 @@ def test_port_modules_load_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True).stdout
     assert out.strip() == "[]", out
+
+
+# ---------------------------------------------------------------------------
+# Every public name of the JAX package has a counterpart in the port.
+#
+# The idiom differences, each deliberate:
+# * the Pallas kernels' module ``ops/pallas_select.py`` is the CUDA kernels'
+#   ``ops/window_select.py``, whose wrappers are named for the functions
+#   they compute;
+# * Flax modules build their parts in ``setup``, ``nn.Module``s in
+#   ``__init__``;
+# * the JAX package's ``__init__`` imports its subpackages lazily through a
+#   module ``__getattr__`` (with ``__all__`` and ``__version__``): private
+#   names, not compared.
+JAX_PKG = REPO / "efficientlo_net_tpu"
+PORT_PKG = REPO / "efficientlo_net_torch"
+COUNTERPART = {"ops/pallas_select.py": "ops/window_select.py"}
+RENAMED = {"pallas_window_select": "window_select", "pallas_select_and_group": "select_and_group"}
+IDIOM_METHODS = {"setup"}
+JAX_MODULES = sorted(str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("*.py"))
+
+
+def _public_names(path):
+    """A module's public top-level names, and each class's public methods."""
+    names, methods = set(), {}
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        targets = []
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            targets = [node.name]
+        elif isinstance(node, ast.Assign):
+            targets = [t.id for t in node.targets if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            targets = [node.target.id]
+        names.update(n for n in targets if not n.startswith("_"))
+        if isinstance(node, ast.ClassDef):
+            methods[node.name] = {f.name for f in node.body
+                                  if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+                                  and not f.name.startswith("_")}
+    return names, methods
+
+
+def test_every_public_jax_name_has_a_port_counterpart():
+    """One static check of the source tree: every JAX module's public names
+    and class methods, all that the port lacks listed at once."""
+    missing = []
+    for module in JAX_MODULES:
+        port = PORT_PKG / COUNTERPART.get(module, module)
+        if not port.exists():
+            missing.append(f"{module}: no port counterpart")
+            continue
+        j_names, j_methods = _public_names(JAX_PKG / module)
+        t_names, t_methods = _public_names(port)
+        missing += [f"{module}: {n}" for n in sorted(j_names) if RENAMED.get(n, n) not in t_names]
+        for cls, names in j_methods.items():
+            missing += [f"{module}: {cls}.{n}"
+                        for n in sorted(names - IDIOM_METHODS - t_methods.get(cls, set()))]
+    assert not missing, missing

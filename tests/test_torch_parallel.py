@@ -72,29 +72,6 @@ DP_STATS = dict(rtol=1e-5, atol=1e-6)
 SOLVE_ATOL = 1e-4
 
 
-class Spawned:
-    """The two rank jobs, started once; ``result(job, rank)`` waits for the
-    job and reads what that rank left."""
-
-    def __init__(self, out_dir):
-        self.out_dir = str(out_dir)
-        self.contexts = {"ring": cases.spawn("ring", 6, out_dir), "dp": cases.spawn("dp", 2, out_dir)}
-        self.joined = set()
-
-    def result(self, job, rank=0):
-        if job not in self.joined:
-            cases.join(self.contexts[job])
-            self.joined.add(job)
-        return torch.load(os.path.join(self.out_dir, f"{job}_rank{rank}.pt"), weights_only=False)
-
-    def close(self):
-        for job, context in self.contexts.items():
-            if job not in self.joined:
-                for process in context.processes:
-                    process.kill()
-                context.join(timeout=60)
-
-
 @pytest.fixture(scope="module")
 def jax_tiny():
     """The tiny JAX network, its initialized variables with random running
@@ -116,22 +93,30 @@ def spawned(tmp_path_factory, jax_tiny):
     """Writes what the rank jobs read, then starts them."""
     out = tmp_path_factory.mktemp("parallel")
     cfg, _, variables, p1, p2 = jax_tiny
-    host = jax.tree_util.tree_map(np.asarray, variables)
-    torch.save(variables_to_state_dict(host), out / "forward_weights.pt")
+    torch.save(variables_to_state_dict(jax.tree_util.tree_map(np.asarray, variables)),
+               out / "forward_weights.pt")
     np.save(out / "forward_p1.npy", p1)
     np.save(out / "forward_p2.npy", p2)
-    state_dict, w_x, w_q = train_state_to_torch(
-        {"model": near_identity_heads(host["params"]), "w_x": np.float32(0.1),
-         "w_q": np.float32(-2.4)}, host["batch_stats"])
-    torch.save({"state_dict": state_dict, "w_x": w_x, "w_q": w_q}, out / "train_weights.pt")
+    write_train_weights(out, variables)
     gt, *_, noise, _, _ = cases.circle_graph()
     np.save(out / "circle_poses0.npy", np.asarray(
         jnp.asarray(gt.astype(np.float32)) @ JSE3.se3_exp(jnp.asarray(noise))))
     scene = random_scene(np.random.default_rng(0), 4096, cfg.sensor)
     build_fake_kitti(out / "kitti", scene, cfg.sensor.num_points)
-    runs = Spawned(out)
+    runs = cases.Spawned(out, {"ring": 6, "dp": 2})
     yield runs
     runs.close()
+
+
+def write_train_weights(out, variables):
+    """``out``/train_weights.pt, which the rank jobs' train steps read: the
+    variables with near-identity pose heads (``_jax_grad_fns``'s), w_x 0.1
+    and w_q -2.4, through the train-state bridge."""
+    host = jax.tree_util.tree_map(np.asarray, variables)
+    state_dict, w_x, w_q = train_state_to_torch(
+        {"model": near_identity_heads(host["params"]), "w_x": np.float32(0.1),
+         "w_q": np.float32(-2.4)}, host["batch_stats"])
+    torch.save({"state_dict": state_dict, "w_x": w_x, "w_q": w_q}, out / "train_weights.pt")
 
 
 def _j(x):
@@ -250,26 +235,17 @@ def test_ring_forward_matches_jax_ring_mesh(spawned, jax_tiny):
         np.testing.assert_array_equal(ring_t, plain_t)
 
 
-def test_ring_forward_refuses_training():
-    from efficientlo_net_torch.config import tiny_model_config
-    from efficientlo_net_torch.models.pwclo import PWCLONet
-
-    model = PWCLONet(tiny_model_config()).train()
-    p = torch.zeros((1, 16, 128, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(p, p, ring_group=object())
-
-
 # ---------------------------------------------------------------------------
 # (f, g) the data-parallel step, (h) checkpoints, (j) the CLI
 
 
-def _jax_grad_fns(jax_tiny):
+def _jax_grad_fns(jax_tiny, ring=None):
     """JAX's gradient, with its aux (new statistics, metrics), of the tiny
     network's loss in scan order with dropout 0: under the shardings of
     ``make_sharded_train_step`` (state replicated, the B=4 batch split over a
-    2-device data mesh), and unsharded; and a function of a numpy seed that
-    calls one on that seed's batch."""
+    2-device data mesh), and unsharded; with ``ring``, a ``ring_mesh``, both
+    run the level-0 select on that ring.  And a function of a numpy seed
+    that calls one on that seed's batch."""
     cfg, _, variables, _, _ = jax_tiny
     cfg = dataclasses.replace(cfg, dropout_rate=0.0)
     model = JNet(cfg)
@@ -280,7 +256,7 @@ def _jax_grad_fns(jax_tiny):
         p1, p2, q_gt, t_gt = inputs
         out, mutated = model.apply({"params": params["model"], "batch_stats": batch_stats},
                                    p1, p2, training=True, bn_momentum=bn_momentum,
-                                   stochastic=False, mutable=["batch_stats"])
+                                   stochastic=False, mutable=["batch_stats"], ring_mesh=ring)
         loss, metrics = JLoss.total_loss(out, q_gt, t_gt, params["w_x"], params["w_q"])
         return loss, (mutated["batch_stats"], metrics)
 

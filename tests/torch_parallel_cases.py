@@ -1,4 +1,5 @@
-"""Cases and rank bodies of the parallelism tests (tests/test_torch_parallel.py).
+"""Cases and rank bodies of the parallelism tests (tests/test_torch_parallel.py,
+tests/test_torch_ring_training.py).
 
 Numpy and the port only, with no JAX import: the rank processes, spawned by
 ``spawn`` with ``torch.multiprocessing`` on 127.0.0.1, import this module by
@@ -52,6 +53,19 @@ DP_BATCH_SEED = 13
 SLAM_STEPS = 36
 # select_and_group: feature channels, kernel, k, distance, centre stride, ring
 GROUP_CASE = dict(hw=(8, 24), channels=5, kernel=(3, 5), k=4, distance=2.0, stride=(2, 2), ring=3)
+# The ring functions' gradients: tests/test_ring.py's two grouping geometries
+# (the down-conv centre stride; KNN windows across the azimuth seam), widened
+# so that rings of 2 to 5 split them: name -> (hw, channels, kernel, k,
+# distance, centre stride, mode)
+GRAD_CASES = {
+    "down_stride": ((8, 120), 5, (3, 5), 4, 2.0, (2, 2), FIRST_K),
+    "seam": ((4, 60), 5, (3, 7), 5, 1000.0, (1, 1), KNN),
+}
+GRAD_RINGS = (2, 3, 4, 5)
+# the ring in training: the B=4 batch's numpy seed (one of DP_JAX_SEEDS, on
+# which the port's single step and JAX's agree) and the generator's seed
+RING_TRAIN_SEED = 13
+RING_TRAIN_GEN_SEED = 5
 
 
 def ring_inputs(name):
@@ -78,6 +92,18 @@ def group_inputs():
     feats = rng.standard_normal((2, h, w, GROUP_CASE["channels"])).astype(np.float32)
     kh, kw = GROUP_CASE["kernel"]
     return g1, feats, rng.permutation(kh * kw)
+
+
+def grad_inputs(name):
+    """(xyz, feats, perm, upstream) of a GRAD_CASES case, from a seed of its
+    own: B=2 grids, and the upstream gradient of the groups (B, N, K, 3 + C)."""
+    (h, w), c, kernel, k, _, cs, mode = GRAD_CASES[name]
+    rng = np.random.default_rng(200 + list(GRAD_CASES).index(name))
+    xyz, _ = make_grids(rng, b=2, h1=h, w1=w, invalid_frac=0.0 if name == "seam" else 0.3)
+    feats = rng.standard_normal((2, h, w, c)).astype(np.float32)
+    perm = rng.permutation(kernel[0] * kernel[1]) if mode == FIRST_K else None
+    n = -(-h // cs[0]) * -(-w // cs[1])
+    return xyz, feats, perm, rng.standard_normal((2, n, k, 3 + c)).astype(np.float32)
 
 
 def widened_block(g, ring_index, ring_size, halo):
@@ -185,6 +211,68 @@ def select_and_group_block(args, ring_size, ring_index, whole):
     return call, plain_diff, unsharded
 
 
+def _max_rel(got, want):
+    """Largest absolute difference relative to the largest entry of ``want``."""
+    return _max_diff(got, want) / max(float(want.abs().max()), 1e-30)
+
+
+def unsharded_group_grads(args, upstream):
+    """The unsharded ``neighbors.select_and_group(fused=False)`` of a
+    ``select_and_group`` call's (xyz, feats, kernel, k, distance, centre
+    stride, mode, perm), and the autograd gradient of sum(upstream *
+    groups), ``upstream`` (B, N, K, 3 + C): (groups, grad xyz, grad feats)."""
+    from efficientlo_net_torch.ops import neighbors
+
+    xyz, feats, kernel, k, distance, cs, mode, perm = args
+    leaves = xyz.detach().requires_grad_(), feats.detach().requires_grad_()
+    gx, gf, _ = neighbors.select_and_group(*leaves, kernel, k, distance, center_stride=cs,
+                                           mode=mode, perm=perm, fused=False)
+    groups = torch.cat([gx, gf], -1)
+    grad_xyz, grad_feats = torch.autograd.grad(groups, leaves, upstream)
+    return groups.detach(), grad_xyz, grad_feats
+
+
+def train_block_grads(args, ring_size, upstream, whole):
+    """The ring's training select and grouping (``ring._group_on_block``,
+    unfused: the ``window_select`` kernel on CUDA tensors) on the widened
+    [xyz | feats] block of every rank of a ring of ``ring_size``, emulated in
+    one process, and its backward: the gradient of sum(upstream * groups)
+    through each block's gather, folded back onto the sectors with
+    ``ring.fold_halo_grad`` (each halo's gradient added to the edge columns
+    of the neighbour that owns them) and put back in raster order.  ``args``
+    and ``upstream`` as ``unsharded_group_grads`` takes them, ``whole`` what
+    it returned.  Returns the largest difference of the groups from the
+    unsharded ones, and of the gradients of xyz and of feats from the
+    unsharded ones, relative to their largest entry."""
+    from efficientlo_net_torch.parallel import ring
+
+    xyz, feats, kernel, k, distance, cs, mode, perm = args
+    b, h, w, _ = xyz.shape
+    c = feats.shape[-1]
+    n_h, n_w = -(-h // cs[0]), -(-w // cs[1])
+    halo = ring._validate(w, w, n_w, cs[1], 1, kernel[1], ring_size)
+    n_w_loc, w_loc = n_w // ring_size, w // ring_size
+    src = torch.cat([xyz, feats], -1).detach()
+    up = upstream.reshape(b, n_h, n_w, k, 3 + c)
+    groups, wide_grads = [], []
+    for r in range(ring_size):
+        wide = widened_block(src, r, ring_size, halo).requires_grad_()
+        gx, gf, _ = ring._group_on_block(
+            xyz[:, :, r * w_loc:(r + 1) * w_loc], wide, r, kernel_size=kernel, k=k,
+            distance=distance, center_stride=cs, mode=mode, perm=perm, halo=halo, w=w, h=h,
+            fused=False)
+        grouped = torch.cat([gx, gf], -1)
+        groups.append(grouped.detach())
+        wide_grads.append(torch.autograd.grad(
+            grouped, wide, up[:, :, r * n_w_loc:(r + 1) * n_w_loc])[0])
+    folded = torch.cat([ring.fold_halo_grad(g, halo, wide_grads[(r - 1) % ring_size][:, :, -halo:],
+                                            wide_grads[(r + 1) % ring_size][:, :, :halo])
+                        for r, g in enumerate(wide_grads)], 2)
+    want_groups, want_xyz, want_feats = whole
+    return (_max_diff(torch.cat(groups, 2).reshape(want_groups.shape), want_groups),
+            _max_rel(folded[..., :3], want_xyz), _max_rel(folded[..., 3:], want_feats))
+
+
 def circle_graph():
     """A noisy circle of 12 poses with a chain, 2 closures (16 factors of
     capacity) and 2 scan pairs of 64 point-to-plane correspondences each,
@@ -229,6 +317,29 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+class Spawned:
+    """Rank jobs by name and world size, all started at once;
+    ``result(job, rank)`` waits for the job and reads what that rank left."""
+
+    def __init__(self, out_dir, jobs):
+        self.out_dir = str(out_dir)
+        self.contexts = {job: spawn(job, world, out_dir) for job, world in jobs.items()}
+        self.joined = set()
+
+    def result(self, job, rank=0):
+        if job not in self.joined:
+            join(self.contexts[job])
+            self.joined.add(job)
+        return torch.load(os.path.join(self.out_dir, f"{job}_rank{rank}.pt"), weights_only=False)
+
+    def close(self):
+        for job, context in self.contexts.items():
+            if job not in self.joined:
+                for process in context.processes:
+                    process.kill()
+                context.join(timeout=60)
 
 
 def spawn(job: str, world: int, out_dir: str):
@@ -593,4 +704,92 @@ def _slam_drives(rank, group):
     return out
 
 
-JOBS = {"ring": _ring_job, "dp": _dp_job}
+# ---------------------------------------------------------------------------
+# job "ring_train" (8 ranks): the ring functions' gradients on (2, R) meshes,
+# the tiny network in training on a ring of 4 and on a (2, 2) mesh
+
+
+def _grad_mesh(ring_size, world):
+    """A (2, R) ("data", "ring") mesh over the first 2R ranks where the
+    world has them, else (1, R), as tests/test_ring.py's ``ring_mesh``
+    falls back on its 8 devices.  Every rank must call it."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    data = 2 if 2 * ring_size <= world else 1
+    return DeviceMesh("cpu", torch.arange(data * ring_size).reshape(data, ring_size),
+                      mesh_dim_names=("data", "ring"))
+
+
+def _ring_grads(name, mesh):
+    """``ring_select_and_group_replicated`` (unfused) on a GRAD_CASES case
+    and the gradient of sum(upstream * groups) in xyz and feats: (the
+    groups, grad xyz, grad feats)."""
+    from efficientlo_net_torch.parallel import ring
+
+    _, _, kernel, k, distance, cs, mode = GRAD_CASES[name]
+    xyz, feats, perm, up = grad_inputs(name)
+    leaves = torch.from_numpy(xyz).requires_grad_(), torch.from_numpy(feats).requires_grad_()
+    gx, gf, _ = ring.ring_select_and_group_replicated(
+        *leaves, kernel, k, distance, mesh=mesh, center_stride=cs, mode=mode,
+        perm=None if perm is None else torch.from_numpy(perm))
+    grouped = torch.cat([gx, gf], -1)
+    grads = torch.autograd.grad(grouped, leaves, torch.from_numpy(up))
+    return _np(grouped), _np(grads[0]), _np(grads[1])
+
+
+def _ring_train_pass(out_dir, stochastic, group):
+    """The tiny network's training forward, ``total_loss`` and backward on the
+    RING_TRAIN_SEED batch from the parent's weights, with the generator seed
+    RING_TRAIN_GEN_SEED and bn momentum of step 0, its level-0 select on
+    ``group`` (None: unsharded).  ``stochastic``: the tiny config's dropout
+    and a scan permutation per first-K select; else dropout 0 in scan order
+    (the JAX reference's).  ``_step_result``'s record, with q and t."""
+    from efficientlo_net_torch.config import TrainConfig, tiny_model_config
+    from efficientlo_net_torch.data.synthetic import synthetic_batch
+    from efficientlo_net_torch.models.losses import total_loss
+    from efficientlo_net_torch.models.pwclo import PWCLONet
+    from efficientlo_net_torch.training.state import create_train_state
+    from efficientlo_net_torch.training.step import _forward_inputs
+
+    cfg = tiny_model_config()
+    if not stochastic:
+        cfg = dataclasses.replace(cfg, dropout_rate=0.0)
+    tcfg = TrainConfig(batch_size=4, host_projection=False)
+    weights = torch.load(os.path.join(out_dir, "train_weights.pt"))
+    model = PWCLONet(cfg)
+    model.load_state_dict(weights["state_dict"], strict=True)
+    state = create_train_state(model, tcfg, device="cpu", w_x=weights["w_x"], w_q=weights["w_q"])
+    batch = synthetic_batch(np.random.default_rng(RING_TRAIN_SEED), 4, cfg.sensor, training=True)
+    p1, p2, q_gt, t_gt = _forward_inputs(batch, cfg.sensor, "cpu")
+    momentum = torch.tensor(tcfg.bn_momentum(0), dtype=torch.float32)
+    out = state.model.train()(p1, p2, bn_momentum=momentum, stochastic=stochastic,
+                              generator=torch.Generator().manual_seed(RING_TRAIN_GEN_SEED),
+                              ring_group=group)
+    loss, metrics = total_loss(out, q_gt, t_gt, state.w_x, state.w_q)
+    loss.backward()
+    return {**_step_result(state, metrics), "q": [_np(q) for q in out["q"]],
+            "t": [_np(t) for t in out["t"]]}
+
+
+def _ring_train_job(rank, world, port, out_dir):
+    from efficientlo_net_torch.parallel.distributed import initialize_distributed
+
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
+    meshes = {r: _grad_mesh(r, world) for r in GRAD_RINGS}
+    ring4 = dist.new_group([0, 1, 2, 3])
+    out = {"grads": {}, "network": {}}
+    for name in GRAD_CASES:
+        for r, mesh in meshes.items():
+            if rank < mesh.mesh.numel():
+                out["grads"][name, r] = _ring_grads(name, mesh)
+    if rank < 4:
+        for which, group in (("ring4", ring4), ("mesh22", meshes[2])):
+            for stochastic in (False, True):
+                out["network"][which, stochastic] = _ring_train_pass(out_dir, stochastic, group)
+    if rank == 0:
+        for stochastic in (False, True):
+            out["network"]["unsharded", stochastic] = _ring_train_pass(out_dir, stochastic, None)
+    _save(out_dir, "ring_train", rank, out)
+
+
+JOBS = {"ring": _ring_job, "dp": _dp_job, "ring_train": _ring_train_job}
