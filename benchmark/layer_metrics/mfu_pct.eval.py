@@ -1,0 +1,7 @@
+"""Sequence eval's dense products against the float32 peak, %."""
+
+from benchmark import readers
+
+
+def read(ctx):
+    return readers.mfu(ctx, "eval")
