@@ -1903,27 +1903,19 @@ def busy_share(trace_file, step_name):
 
 def traced_steps(trainer, log_dir):
     """TRACE_STEPS trainer steps (epoch 1, through the loader) under
-    ``utils.profiling.trace``, each step annotated; returns ``busy_share``
-    of the trace."""
+    ``utils.profiling.trace``, each in the step's own ``train.step`` span;
+    returns ``busy_share`` of the trace."""
     import glob
 
     import torch
 
-    from efficientlo_net_torch.utils.profiling import annotate, trace
+    from efficientlo_net_torch.utils.profiling import trace
 
-    step_fn = trainer.train_step
-
-    def annotated(state, batch, generator):
-        with annotate("train_step"):
-            return step_fn(state, batch, generator)
-
-    trainer.train_step = annotated
     with trace(log_dir):
         trainer.train_one_epoch(1, limit_batches=TRACE_STEPS)
         torch.cuda.synchronize()
-    trainer.train_step = step_fn
     (path,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
-    return busy_share(path, "train_step")
+    return busy_share(path, "train.step")
 
 
 def host_projection_phase(ws, nbr, cfg, tcfg, scans, device_poses, batches, tree, work,

@@ -7,6 +7,11 @@ package's parameters and batch statistics.  Scans go to the device as int16
 (``quantize_points``, 1.25 mm), as the JAX runner sends them, and the steps
 dequantize.  The last partial batch is padded with repeats of its last row;
 frame 0 pairs with itself.
+
+Spans of the streaming prediction (``utils.profiling``): ``eval.batch`` (its
+id the batch's first frame) with ``eval.wait_scans``, ``eval.to_device``,
+``eval.splice`` and ``eval.poses_to_host`` around the steps' own, and
+``eval.read_block`` (its id the block's first frame) in the reader thread.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 
 from ..data.kitti import SEQ_LENGTH_TABLE, SEQ_NAMES, OdometryDataset, load_tr
 from ..data.loader import PrefetchLoader, quantize_points, to_device
+from ..utils.profiling import span
 from .kitti_metrics import (SequenceResult, evaluate_sequence, load_poses, poses_from_rows,
                             save_sequence_errors)
 from .odometry import integrate_sequence, save_kitti_trajectory
@@ -81,30 +87,41 @@ def predict_sequence_streaming(encode_step, correlate_step, model, dataset: Odom
             ThreadPoolExecutor(max_workers=1) as reader:
 
         def read_block(s):
-            frames = list(range(s, min(s + batch_size, n)))
-            scans = list(pool.map(lambda f: dataset.read_scan(seq, f), frames))
-            bsz = len(scans)
-            scans += [scans[-1]] * (batch_size - bsz)  # pad to the batch shape
-            return quantize_points(np.stack(scans)), bsz
+            with span("eval.read_block", id=s):
+                frames = list(range(s, min(s + batch_size, n)))
+                scans = list(pool.map(lambda f: dataset.read_scan(seq, f), frames))
+                bsz = len(scans)
+                scans += [scans[-1]] * (batch_size - bsz)  # pad to the batch shape
+                return quantize_points(np.stack(scans)), bsz
+
+        def transfer(block):
+            # passed straight to the encode step: the block's device copy is
+            # freed as the encode returns, not held through the correlation
+            with span("eval.to_device"):
+                return to_device({"points": block}, device)["points"]
 
         # double buffer: the next block's disk reads overlap the device's work
         pending = reader.submit(read_block, 0)
         for s in range(0, n, batch_size):
             if progress is not None and (s // batch_size) % 40 == 0:
                 progress(f"seq {seq} eval frame {s}/{n}")
-            block, bsz = pending.result()
-            if s + batch_size < n:
-                pending = reader.submit(read_block, s + batch_size)
-            pyr = encode_step(model, to_device({"points": block}, device)["points"])
-            if prev_tail is None:  # frame 0 pairs with itself
-                prev_tail = _map_pyramid(lambda a: a[:1], pyr)
-            # frame s+i pairs with s+i-1
-            pyr_prev = _map_pyramid(lambda tail, cur: torch.cat([tail, cur[:-1]], dim=0),
-                                    prev_tail, pyr)
-            out = correlate_step(model, pyr, pyr_prev)
-            quats.append(out["q"][:bsz].cpu().numpy())
-            trans.append(out["t"][:bsz].cpu().numpy())
-            prev_tail = _map_pyramid(lambda a: a[bsz - 1:bsz], pyr)
+            with span("eval.batch", id=s):
+                with span("eval.wait_scans"):
+                    block, bsz = pending.result()
+                if s + batch_size < n:
+                    pending = reader.submit(read_block, s + batch_size)
+                pyr = encode_step(model, transfer(block))
+                with span("eval.splice"):
+                    if prev_tail is None:  # frame 0 pairs with itself
+                        prev_tail = _map_pyramid(lambda a: a[:1], pyr)
+                    # frame s+i pairs with s+i-1
+                    pyr_prev = _map_pyramid(lambda tail, cur: torch.cat([tail, cur[:-1]], dim=0),
+                                            prev_tail, pyr)
+                out = correlate_step(model, pyr, pyr_prev)
+                with span("eval.poses_to_host"):
+                    quats.append(out["q"][:bsz].cpu().numpy())
+                    trans.append(out["t"][:bsz].cpu().numpy())
+                prev_tail = _map_pyramid(lambda a: a[bsz - 1:bsz], pyr)
     return np.concatenate(quats)[:n], np.concatenate(trans)[:n]
 
 

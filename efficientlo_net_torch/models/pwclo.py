@@ -15,6 +15,11 @@ permutation at every first-K select (the JAX package's ``neighbor`` and
 ``cfg.compute_dtype`` sets the dtype of every MLP stack (bfloat16 or
 float32); the pose heads stay float32 and the parameters are float32 either
 way, so one set of weights serves both.
+
+Spans (``utils.profiling``): ``pyramid`` with ``down_l{i}``; ``correlation``
+with ``l3`` (``cv_origin``, ``cv_down_l3``, ``head``) and ``refine_l{2,1,0}``
+(``warp_project``, ``cv``, ``up_w``, ``up_feat``, ``head``).  The selects'
+counts (``ops/neighbors.py``) are filed under the innermost of them.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..config import ModelConfig
 from ..ops import quaternion as Q
 from ..ops.projection import project_to_range_image
 from ..parallel.ring import ring_select_and_group_replicated
+from ..utils.profiling import span
 from .layers import (
     CostVolume,
     DownConv,
@@ -165,19 +171,22 @@ class PWCLONet(nn.Module):
         cfg = self.cfg
         shapes = cfg.level_shapes
         feats = []
-        cur_xyz = xyz_proj
-        cur_feat_proj = torch.zeros_like(xyz_proj)  # zero input features
-        for i, layer in enumerate(self.down_layers):
-            perm = self._perm(cfg.down_kernels[i], stochastic, generator)
-            select_fn = None
-            if ring_group is not None and i == 0:
-                select_fn = functools.partial(ring_select_and_group_replicated, mesh=ring_group)
-            feat, new_xyz = layer(cur_xyz, cur_feat_proj, self.down_strides[i], perm, bn_momentum,
-                                  select_fn=select_fn)
-            h, w = shapes[i + 2]
-            feat_proj = feat.reshape(feat.shape[0], h, w, feat.shape[-1])
-            feats.append((new_xyz, feat, feat_proj))
-            cur_xyz, cur_feat_proj = new_xyz, feat_proj
+        with span("pyramid"):
+            cur_xyz = xyz_proj
+            cur_feat_proj = torch.zeros_like(xyz_proj)  # zero input features
+            for i, layer in enumerate(self.down_layers):
+                with span(f"down_l{i}"):
+                    perm = self._perm(cfg.down_kernels[i], stochastic, generator)
+                    select_fn = None
+                    if ring_group is not None and i == 0:
+                        select_fn = functools.partial(ring_select_and_group_replicated,
+                                                      mesh=ring_group)
+                    feat, new_xyz = layer(cur_xyz, cur_feat_proj, self.down_strides[i], perm,
+                                          bn_momentum, select_fn=select_fn)
+                    h, w = shapes[i + 2]
+                    feat_proj = feat.reshape(feat.shape[0], h, w, feat.shape[-1])
+                feats.append((new_xyz, feat, feat_proj))
+                cur_xyz, cur_feat_proj = new_xyz, feat_proj
         return feats
 
     def _warp(self, xyz_proj, q, t):
@@ -231,6 +240,10 @@ class PWCLONet(nn.Module):
                               generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """Correlation + warp-refinement on precomputed feature pyramids
         (a stream caches each frame's pyramid and pairs it with the next)."""
+        with span("correlation"):
+            return self._correlate(f1, f2, bn_momentum, stochastic, generator)
+
+    def _correlate(self, f1, f2, bn_momentum, stochastic, generator) -> Dict[str, Any]:
         cfg = self.cfg
         shapes = cfg.level_shapes
         b = f1[0][0].shape[0]
@@ -248,19 +261,22 @@ class PWCLONet(nn.Module):
 
         m = bn_momentum
         # ---- coarse level l3 -------------------------------------------
-        cv = self.cv_origin(l2_xyz1, l2_xyz2, l2_fp1, l2_fp2, perm(cfg.cv_kernel1), m)
-        h2, w2 = shapes[4]
-        cv_proj = cv.reshape(b, h2, w2, cv.shape[-1])
-        l3_predict, _ = self.cv_down_l3(l2_xyz1, cv_proj, self.down_strides[3],
-                                        perm(cfg.down_kernels[3]), m)
+        with span("l3"):
+            with span("cv_origin"):
+                cv = self.cv_origin(l2_xyz1, l2_xyz2, l2_fp1, l2_fp2, perm(cfg.cv_kernel1), m)
+                h2, w2 = shapes[4]
+                cv_proj = cv.reshape(b, h2, w2, cv.shape[-1])
+            with span("cv_down_l3"):
+                l3_predict, _ = self.cv_down_l3(l2_xyz1, cv_proj, self.down_strides[3],
+                                                perm(cfg.down_kernels[3]), m)
+            with span("head"):
+                h3, w3 = shapes[5]
+                l3_predict_proj = l3_predict.reshape(b, h3, w3, -1)
+                l3_w = self.l3_w_predictor([l3_feat1, l3_predict], m)
+                l3_w_proj = l3_w.reshape(b, h3, w3, -1)
 
-        h3, w3 = shapes[5]
-        l3_predict_proj = l3_predict.reshape(b, h3, w3, -1)
-        l3_w = self.l3_w_predictor([l3_feat1, l3_predict], m)
-        l3_w_proj = l3_w.reshape(b, h3, w3, -1)
-
-        l3_mask = valid_mask_from_xyz(l3_xyz1.reshape(b, h3 * w3, 3))
-        l3_q, l3_t = self.l3_head(softmax_valid(l3_predict, l3_w, l3_mask), generator)
+                l3_mask = valid_mask_from_xyz(l3_xyz1.reshape(b, h3 * w3, 3))
+                l3_q, l3_t = self.l3_head(softmax_valid(l3_predict, l3_w, l3_mask), generator)
 
         # ---- warp-refinement l2 -> l1 -> l0 ----------------------------
         level_data = [
@@ -275,28 +291,34 @@ class PWCLONet(nn.Module):
         qs, ts = [None, None, None, l3_q], [None, None, None, l3_t]
 
         for li, xyz1_proj, feat1, fp2, xyz2_proj, (hl, wl) in level_data:
-            parts = self.refine[li]
-            warped = self._warp(xyz1_proj, q_coarse, t_coarse)  # (B, N, 3)
-            # warped points derive from the 35 m-cropped input: packed is
-            # safe.  Gradients flow through the gather of the winners into
-            # the coarser level's (q, t).
-            xyz_warp_proj, feat_warp_proj = project_to_range_image(
-                warped, feat1, hl, wl, cfg.sensor, method="packed"
-            )
-            feat_warp = feat_warp_proj.reshape(b, hl * wl, -1)
-            mask_warp = valid_mask_from_xyz(xyz_warp_proj.reshape(b, hl * wl, 3))
+            with span(f"refine_l{li}"):
+                parts = self.refine[li]
+                with span("warp_project"):
+                    warped = self._warp(xyz1_proj, q_coarse, t_coarse)  # (B, N, 3)
+                    # warped points derive from the 35 m-cropped input:
+                    # packed is safe.  Gradients flow through the gather of
+                    # the winners into the coarser level's (q, t).
+                    xyz_warp_proj, feat_warp_proj = project_to_range_image(
+                        warped, feat1, hl, wl, cfg.sensor, method="packed"
+                    )
+                    feat_warp = feat_warp_proj.reshape(b, hl * wl, -1)
+                    mask_warp = valid_mask_from_xyz(xyz_warp_proj.reshape(b, hl * wl, 3))
 
-            cv_l = parts["cv"](xyz_warp_proj, xyz2_proj, feat_warp_proj, fp2,
-                               perm(cfg.cv_kernel1), m)
-            up_w = parts["up_w"](xyz_warp_proj, coarser_xyz_proj, feat_warp, coarser_w_proj,
-                                 perm(cfg.up_kernel), m)
-            up_feat = parts["up_feat"](xyz_warp_proj, coarser_xyz_proj, feat_warp,
-                                       coarser_predict_proj, perm(cfg.up_kernel), m)
-            predict = parts["pred_feat"]([feat_warp, up_feat, cv_l], m)
-            w = parts["pred_w"]([feat_warp, up_w, cv_l], m)
+                with span("cv"):
+                    cv_l = parts["cv"](xyz_warp_proj, xyz2_proj, feat_warp_proj, fp2,
+                                       perm(cfg.cv_kernel1), m)
+                with span("up_w"):
+                    up_w = parts["up_w"](xyz_warp_proj, coarser_xyz_proj, feat_warp,
+                                         coarser_w_proj, perm(cfg.up_kernel), m)
+                with span("up_feat"):
+                    up_feat = parts["up_feat"](xyz_warp_proj, coarser_xyz_proj, feat_warp,
+                                               coarser_predict_proj, perm(cfg.up_kernel), m)
+                with span("head"):
+                    predict = parts["pred_feat"]([feat_warp, up_feat, cv_l], m)
+                    w = parts["pred_w"]([feat_warp, up_w, cv_l], m)
 
-            q_det, t_det = parts["head"](softmax_valid(predict, w, mask_warp), generator)
-            q_new, t_new = Q.compose_pose(q_det, t_det, q_coarse, t_coarse)
+                    q_det, t_det = parts["head"](softmax_valid(predict, w, mask_warp), generator)
+                    q_new, t_new = Q.compose_pose(q_det, t_det, q_coarse, t_coarse)
 
             qs[li], ts[li] = q_new, t_new
             q_coarse, t_coarse = q_new, t_new

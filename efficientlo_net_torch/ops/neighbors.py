@@ -14,7 +14,10 @@ CUDA kernels, for CPU tensors they run the plain PyTorch versions
 checked against.  The selects carry no gradient (indices and masks);
 ``gather_by_index`` carries it into the gathered values.  Inside
 ``plain_selects()`` both run the plain versions inline, with no operator:
-``serving.export`` traces a portable artifact so.
+``serving.export`` traces a portable artifact so.  Each call counts
+``select.<mode>`` in ``utils.profiling``, whichever version runs: while
+recording, the count is filed under the innermost open span, which names
+the call's place in the network.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils import profiling
 
 FIRST_K = "first_k"
 KNN = "knn"
@@ -305,6 +310,7 @@ def select_neighbors(xyz1, xyz2, kernel_size, k, distance, center_stride=(1, 1),
     ``efficientlo::window_select``: CUDA tensors go to the ``window_select``
     kernel, CPU tensors to ``select_neighbors_plain``.
     """
+    profiling.count(f"select.{mode}")
     if _inline_plain_on(xyz1):
         return select_neighbors_plain(xyz1, xyz2, kernel_size, k, distance, center_stride,
                                       source_stride, mode, perm)
@@ -325,6 +331,7 @@ def select_and_group(xyz, feats, kernel_size, k, distance, center_stride=(1, 1),
     ``select_neighbors`` and gathers with ``gather_by_index``, so gradients
     flow into ``xyz`` and ``feats``."""
     if fused and not _inline_plain_on(xyz):
+        profiling.count(f"select.{mode}")
         ks, k, distance, cs, mode, perm = _op_args(kernel_size, k, distance, center_stride,
                                                    mode, perm, xyz.device)
         return _ops().select_and_group(xyz.detach(), feats.detach(), ks, k, distance, cs,

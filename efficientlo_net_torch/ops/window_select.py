@@ -10,8 +10,8 @@ The hand-written Hopper counterparts of the two Pallas TPU kernels in
 
 Both take CUDA tensors only and launch on the current stream; the plain
 PyTorch versions of the same functions are ``neighbors.select_neighbors_plain``
-and ``neighbors.select_and_group_plain``.  ``launches`` counts the launches
-of each kernel.
+and ``neighbors.select_and_group_plain``.  ``launches`` reads the launch
+counters of each kernel (``launch.<kernel>`` in ``utils.profiling``).
 
 Importing this module registers both as ``torch.library`` custom operators,
 ``efficientlo::window_select`` and ``efficientlo::select_and_group``, which
@@ -26,18 +26,38 @@ as the JAX package cuts gradients before both Pallas calls.
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Mapping
 from typing import Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import cuda_build
 from . import neighbors
 from .neighbors import FIRST_K, KNN
 
 SOURCE = "window_select.cu"
 
-#: kernel launches since the last ``reset_launches()``
-launches = {"window_select": 0, "select_and_group": 0}
+KERNELS = ("window_select", "select_and_group")
+
+
+class _Launches(Mapping):
+    """Each kernel's launches since the last ``reset_launches()``: a view of
+    the recorder's ``launch.<kernel>`` counters."""
+
+    def __getitem__(self, kernel: str) -> int:
+        if kernel not in KERNELS:
+            raise KeyError(kernel)
+        return profiling.counters().get(f"launch.{kernel}", 0)
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self) -> int:
+        return len(KERNELS)
+
+
+launches = _Launches()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,8 +66,7 @@ _bound = None  # (library, the largest K its kernels take), bound once
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    profiling.reset(*(f"launch.{kernel}" for kernel in KERNELS))
 
 
 def _lib() -> Tuple[ctypes.CDLL, int]:
@@ -157,7 +176,7 @@ def window_select(
         idx.data_ptr(), mask.data_ptr(), torch.cuda.current_stream(xyz1.device).cuda_stream,
     )
     _raise_on(err, "window_select")
-    launches["window_select"] += 1
+    profiling.count("launch.window_select")
     return idx, mask
 
 
@@ -201,7 +220,7 @@ def select_and_group(
         torch.cuda.current_stream(xyz.device).cuda_stream,
     )
     _raise_on(err, "select_and_group")
-    launches["select_and_group"] += 1
+    profiling.count("launch.select_and_group")
     return gxyz, gfeat, mask
 
 

@@ -8,6 +8,11 @@ weights.  PyTorch runs it eagerly; the JAX package
 jits it into one program.  ``make_streaming_eval_fns`` splits the eval step
 into a per-frame encoder and a per-pair correlation, for sequence
 evaluation.
+
+Spans (``utils.profiling``): ``train.step`` (its id the state's step) with
+``train.inputs``, ``train.forward``, ``train.loss``, ``train.backward`` and
+``train.optimizer``; ``eval.encode`` and ``eval.correlate`` in the streaming
+steps.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from ..models.losses import total_loss
 from ..models.preprocess import gt_quat, preprocess
 from ..ops.projection import crop_and_project, project_to_range_image
 from ..parallel.distributed import all_reduce_
+from ..utils.profiling import span
 from .state import TrainState, bn_momentum_schedule, lr_schedule
 
 BATCH_KEYS = ("pc1", "pc2", "T_gt", "T_trans", "T_trans_inv", "aug_frame")
@@ -98,30 +104,40 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, host_project
 
     def train_step(state: TrainState, batch: Dict, generator: torch.Generator,
                    stage: Optional[Callable[[str], None]] = None):
-        mark = stage or (lambda name: None)
+        with span("train.step", id=state.step):
+            return _train_step(state, batch, generator, stage or (lambda name: None))
+
+    def _train_step(state, batch, generator, mark):
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        if host_projected:
-            p1, p2, q_gt, t_gt = _forward_inputs_projected(batch, state.device)
-        else:
-            p1, p2, q_gt, t_gt = _forward_inputs(batch, model_cfg.sensor, state.device)
+        with span("train.inputs"):
+            if host_projected:
+                p1, p2, q_gt, t_gt = _forward_inputs_projected(batch, state.device)
+            else:
+                p1, p2, q_gt, t_gt = _forward_inputs(batch, model_cfg.sensor, state.device)
         mark("inputs")
-        # the decay as a float32 scalar, as the JAX package traces it
-        bn_momentum = torch.tensor(bn_at(state.step), dtype=torch.float32, device=state.device)
-        with data_parallel(data_group):
-            out = model(p1, p2, bn_momentum=bn_momentum, stochastic=True, generator=generator)
-        loss, metrics = total_loss(out, q_gt, t_gt, state.w_x, state.w_q)
+        with span("train.forward"):
+            # the decay as a float32 scalar, as the JAX package traces it
+            bn_momentum = torch.tensor(bn_at(state.step), dtype=torch.float32,
+                                       device=state.device)
+            with data_parallel(data_group):
+                out = model(p1, p2, bn_momentum=bn_momentum, stochastic=True,
+                            generator=generator)
+        with span("train.loss"):
+            loss, metrics = total_loss(out, q_gt, t_gt, state.w_x, state.w_q)
         mark("forward")
-        loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if data_group is not None:
-            _average_over(data_group, [p.grad for p in state.parameters()])
-            _average_over(data_group, list(metrics.values()))
+        with span("train.backward"):
+            loss.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if data_group is not None:
+                _average_over(data_group, [p.grad for p in state.parameters()])
+                _average_over(data_group, list(metrics.values()))
         mark("backward")
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr_at(state.step)
-        state.optimizer.step()
-        state.step += 1
+        with span("train.optimizer"):
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr_at(state.step)
+            state.optimizer.step()
+            state.step += 1
         mark("optimizer")
         return state, metrics
 
@@ -157,16 +173,18 @@ def make_streaming_eval_fns(model_cfg: ModelConfig):
 
     @torch.no_grad()
     def encode_step(model, points):
-        model.eval()
-        device = next(model.parameters()).device
-        points = dequantize(torch.as_tensor(points, device=device))
-        return model._pyramid(crop_and_project(points, sensor))
+        with span("eval.encode"):
+            model.eval()
+            device = next(model.parameters()).device
+            points = dequantize(torch.as_tensor(points, device=device))
+            return model._pyramid(crop_and_project(points, sensor))
 
     @torch.no_grad()
     def correlate_step(model, pyr_new, pyr_prev):
-        model.eval()
-        out = model.forward_from_pyramids(pyr_new, pyr_prev)
-        return {"q": out["q"][0], "t": out["t"][0]}
+        with span("eval.correlate"):
+            model.eval()
+            out = model.forward_from_pyramids(pyr_new, pyr_prev)
+            return {"q": out["q"][0], "t": out["t"][0]}
 
     return encode_step, correlate_step
 

@@ -26,7 +26,7 @@ from efficientlo_net_torch.evaluation.streaming import OdometryStream
 from efficientlo_net_torch.models.pwclo import PWCLONet
 from efficientlo_net_torch.ops.projection import project_to_range_image
 from efficientlo_net_torch.training.trainer import Trainer
-from efficientlo_net_torch.utils.profiling import StepTimer, annotate, trace
+from efficientlo_net_torch.utils.profiling import span, trace
 # bare name: a machine may have an unrelated "tests" package installed
 from torch_cases import KITTI_SEQ, build_fake_kitti
 
@@ -182,23 +182,13 @@ def test_host_projected_trainer_quantizes_images(tree, tmp_path):
 
 def test_trace_writes_a_chrome_trace_with_annotations(tmp_path):
     with trace(str(tmp_path / "trace")) as prof:
-        with annotate("elo_region"):
+        with span("elo_region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     (path,) = (tmp_path / "trace").glob("*.pt.trace.json")
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "elo_region" for e in events)
     assert any(e.key == "elo_region" for e in prof.key_averages())
-
-
-def test_step_timer_records_its_history():
-    timer = StepTimer()
-    for _ in range(3):
-        timer.start()
-        assert timer.stop(sync=torch.zeros(1)) >= 0.0  # a CPU tensor: nothing to wait for
-    assert len(timer.history) == 3
-    assert timer.mean == pytest.approx(sum(timer.history) / 3)
-    assert StepTimer().mean == 0.0
 
 
 # ---------------------------------------------------------------------------
