@@ -26,17 +26,23 @@ printing JSON lines:
    (CUDA events, median; and the host's time to make the calls) of the
    wrapper and of its ``efficientlo::`` operator, which every call site of
    the port goes through, and the kernel alone (the replay of a CUDA graph
-   that captured the calls);
+   that captured the calls).  Likewise every ``bn_relu`` call of that push
+   (89 layers: 12 in the tower, 77 in the correlation) is replayed through
+   the kernel and ``bn_relu_plain``, bit-equal, and timed beside its bound
+   (8 bytes an element) and the eager chain's device time;
 4. stream: ~10 scans pushed through ``OdometryStream(device="cuda")``; every
-   push must launch ``window_select`` 14 times and ``select_and_group`` 5
-   times; poses must be finite with unit quaternions and match the same
-   stream run through the plain select versions on the card; ms per push,
-   and per stage (projection, tower, correlation + refinement);
+   push must launch ``window_select`` 14 times, ``select_and_group`` 5 times
+   and ``bn_relu`` 89 times; poses must be finite with unit quaternions and
+   match the same stream run on the card through the plain select versions
+   and the eager batch-norm chain, which must launch none of the port's
+   kernels; ms per push, and per stage (projection, tower, correlation +
+   refinement);
 5. train kernels: the 23 ``window_select`` calls of one train step (8 in
    the two towers, 3 at the coarse level, 4 at each refinement level; 19
    first-K with a fresh random scan order, 4 KNN) replayed through the
    kernel and the plain version: masks and indices equal, in the same slot
-   order; each site timed as in phase 3;
+   order; each site timed as in phase 3; phases 5 and 6 launch no
+   ``bn_relu`` (training-mode batch norm keeps the eager chain);
 6. train: ``make_train_step`` on ``create_train_state(load_model(...))``,
    2 warm-up steps, then 10 timed steps on one fixed B=8 batch; every step
    must launch ``window_select`` 23 times and ``select_and_group`` never,
@@ -101,8 +107,8 @@ printing JSON lines:
    host path likewise; ms of packed, sort and scatter on the card at B=1
    and B=8, of the native ``project_scan`` at 1, 4 and 8 threads and of
    ``augment_project_batch`` at B=8; (c) ``OdometryStream(host_projection=
-   True)`` pushes the same scans: 14 + 5 launches a push, finite poses
-   with unit quaternions; ms per push and per stage, and the largest pose
+   True)`` pushes the same scans: 14 + 5 + 89 (``bn_relu``) launches a
+   push, finite poses with unit quaternions; ms per push and per stage, and the largest pose
    difference from phase 4 (not checked: exact images against packed);
    (d) ``make_train_step(host_projected=True)`` on the host-projected
    batches, 2 warm-up and 10 timed steps: 23 + 0 launches a step, finite
@@ -116,7 +122,7 @@ printing JSON lines:
    of its CUDA kernel intervals) and its top operations;
 10. bfloat16 and serving, at the full config: (a) the stream's scans
    through ``OdometryStream`` with ``compute_dtype="bfloat16"``: 14 + 5
-   launches a push, finite poses with unit quaternions within
+   launches a push and no ``bn_relu`` (bfloat16 keeps the chain), finite poses with unit quaternions within
    ``BF16_*_BOUND`` of phase 4's float32 poses, one push's select calls
    replayed through kernel and plain version as in phase 3 (the features
    reaching ``select_and_group`` must be float32); ms per push beside phase
@@ -163,8 +169,9 @@ printing JSON lines:
    the unsharded ``select_and_group(fused=False)`` gradient, 2 + 0
    launches a block counted; device ms of each block;
 12. the ``kernels`` line (each kernel's launches, times and bound, per path
-   and summed), the total seconds, then the card line, then the result
-   line.
+   and summed; ``bn_relu`` over one push's sites, with the stream's and the
+   train path's launches), the total seconds, then the card line, then the
+   result line.
 
 Exits non-zero, printing no result, when no CUDA device is present or any
 check fails.
@@ -195,7 +202,12 @@ SELECT_SITES = ["cv_origin.knn", "cv_origin.self"] + [
     for name in ("cv.knn", "cv.self", "up_w", "up_feat")
 ]
 GROUP_SITES = ["down_l0", "down_l1", "down_l2", "down_l3", "cv_down_l3"]
-# Kernel and plain selects write the K slots in the same order, so the two
+# bn_relu launches of one push: the batch norms of one tower and of the
+# correlation (ops/bn_relu.py, one per ConvMLP layer in eval).
+BN_RELU_SITES = 12 + 77
+BN_RELU_FLOPS_PER_ELEMENT = 5  # subtract, two multiplies, add, max
+# Kernel and plain selects write the K slots in the same order, and the
+# bn_relu kernel equals the eager batch-norm chain bit for bit, so the two
 # streams run the same arithmetic and should agree bit for bit.  The
 # tolerance covers a library reduction that is not bitwise reproducible from
 # run to run.  It does not cover a point that the in-network re-projection
@@ -413,16 +425,52 @@ def recording(ws):
 
 
 @contextlib.contextmanager
+def recording_bn_relu(bnr):
+    """Record the arguments of every ``bn_relu`` launch made inside the block,
+    each tensor copied."""
+    calls = []
+    original = bnr.bn_relu
+
+    def fn(*args):
+        calls.append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+        return original(*args)
+
+    bnr.bn_relu = fn
+    try:
+        yield calls
+    finally:
+        bnr.bn_relu = original
+
+
+@contextlib.contextmanager
 def plain_selects(ws, nbr):
-    """Route the network's selects through the plain PyTorch versions."""
+    """Route the network's selects through the plain PyTorch versions, and its
+    batch norms through the eager chain: no kernel of the port runs."""
+    from efficientlo_net_torch.models import layers
+
     originals = {name: getattr(ws, name) for name in ("window_select", "select_and_group")}
+    fuses = layers._fuses_bn_relu
     ws.window_select = nbr.select_neighbors_plain
     ws.select_and_group = nbr.select_and_group_plain
+    layers._fuses_bn_relu = lambda bn, x: False
     try:
         yield
     finally:
         for name, fn in originals.items():
             setattr(ws, name, fn)
+        layers._fuses_bn_relu = fuses
+
+
+def launch_counts():
+    """Every kernel's launches so far, by kernel: the ``launch.<kernel>``
+    counters of ``utils.profiling`` (zero for a kernel not yet launched)."""
+    from efficientlo_net_torch.ops import window_select as ws
+    from efficientlo_net_torch.utils import profiling
+
+    counts = dict.fromkeys(ws.KERNELS + ("bn_relu",), 0)
+    counts.update({name[len("launch."):]: n for name, n in profiling.counters().items()
+                   if name.startswith("launch.")})
+    return counts
 
 
 def sorted_sets(idx, mask):
@@ -543,14 +591,39 @@ def describe(args, group):
             "mode": mode, "perm": perm is not None}
 
 
+def bn_relu_site_row(bnr, site, args):
+    """One recorded ``bn_relu`` call: the kernel bit-equal to
+    ``bn_relu_plain``, then timed beside its bound and the eager chain."""
+    import torch
+
+    got = bnr.bn_relu(*args)
+    want = bnr.bn_relu_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          f"bn_relu at {site} differs from the plain version "
+          f"(max {float((got - want).abs().max())})")
+    ms, host_ms = time_ms(lambda: bnr.bn_relu(*args))
+    op_ms, op_host_ms = time_ms(lambda: torch.ops.efficientlo.bn_relu(*args))
+    device_ms = graph_ms(lambda: bnr.bn_relu(*args))
+    plain_ms, _ = time_ms(lambda: bnr.bn_relu_plain(*args))
+    library_ms = graph_ms(lambda: bnr.bn_relu_plain(*args))
+    x = args[0]
+    b_ms, b_by = bound(nbytes(x, got, *args[1:5]), BN_RELU_FLOPS_PER_ELEMENT * x.numel())
+    return dict(site=site, shape=list(x.shape), C=x.shape[-1], ms=ms, host_ms=host_ms,
+                op_ms=op_ms, op_host_ms=op_host_ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
+
+
 def kernel_phase(ws, nbr, stream, scans):
-    """Phase 3: record the select calls of one push, then replay every call
+    """Phase 3: record the kernel calls of one push, then replay every call
     site through the kernel and the plain version, checked and timed."""
     import torch
 
+    from efficientlo_net_torch.ops import bn_relu as bnr
+
     stream.reset()
     stream.push(scans[0])
-    with recording(ws) as calls:
+    with recording(ws) as calls, recording_bn_relu(bnr) as bn_calls:
         stream.push(scans[1])
 
     check(len(calls["window_select"]) == len(SELECT_SITES),
@@ -574,6 +647,11 @@ def kernel_phase(ws, nbr, stream, scans):
             site=site, **describe(args, True), ms=ms, host_ms=host_ms, op_ms=op_ms,
             op_host_ms=op_host_ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, max_abs_err=err, same_order=same))
+    check(len(bn_calls) == BN_RELU_SITES,
+          f"one push made {len(bn_calls)} bn_relu calls, expected {BN_RELU_SITES}")
+    sites["bn_relu"] = [bn_relu_site_row(bnr, ("tower" if i < 12 else "correlation") + f".{i}",
+                                         args) for i, args in enumerate(bn_calls)]
+    del bn_calls
     for name, rows in sites.items():
         for row in rows:
             emit({"phase": "kernel_site", "kernel": name, **row})
@@ -605,13 +683,13 @@ def make_scans(sensor, n):
 def run_stream(stream, ws, scans):
     """Push every scan after a reset.  Returns the poses, the ms of each push
     (CUDA events around a push, which ends by copying the pose to the host)
-    and each push's kernel launches."""
+    and each push's launches of every kernel (``launch_counts``)."""
     import torch
 
     stream.reset()
     poses, times, launches = [], [], []
     for s in scans:
-        before = dict(ws.launches)
+        before = launch_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -619,7 +697,7 @@ def run_stream(stream, ws, scans):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-        launches.append({k: ws.launches[k] - before[k] for k in before})
+        launches.append({k: n - before.get(k, 0) for k, n in launch_counts().items()})
     return poses, times, launches
 
 
@@ -655,11 +733,16 @@ def stage_times(stream, scans):
 def stream_phase(ws, nbr, stream, scans, meta, card):
     """Phase 4: the main path.  Returns the launches of each kernel in it, the
     poses and the push times."""
+    from efficientlo_net_torch.ops import bn_relu as bnr
+    from efficientlo_net_torch.utils import profiling
+
     run_stream(stream, ws, scans[:2])  # warm-up outside the counted run
     ws.reset_launches()
+    profiling.reset(bnr.COUNTER)
     poses, times, per_push = run_stream(stream, ws, scans)
-    launches = dict(ws.launches)
-    expected = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES)}
+    launches = launch_counts()
+    expected = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES),
+                "bn_relu": BN_RELU_SITES}
     for i, counts in enumerate(per_push):
         check(counts == expected, f"push {i} launched {counts}, expected {expected}")
     for q, t in poses:
@@ -751,6 +834,29 @@ def kernels_line(paths, counted, card):
             "paths": per, "card": card,
         })
     return {"kernels": kernels}
+
+
+def bn_relu_entry(rows, launches, card):
+    """Phase 12's entry for ``bn_relu``: times and bound of one push's 89
+    sites (phase 3), summed; ``launches`` maps "stream" and "train" to the
+    launches of phase 4's and of phases 5-6's counted runs."""
+    total = summed(rows, sum(launches.values()))
+    return {
+        "name": "bn_relu", "route": "cuda", "source": "efficientlo_net_torch/ops/csrc/bn_relu.cu",
+        "replaces": None,
+        **{k: total[k] for k in ("launches", "max_abs_err", "ms", "device_ms", "plain_ms",
+                                 "bound_ms", "bound_by", "host_ms", "op_ms", "op_host_ms")},
+        "library_ms": sum(r["library_ms"] for r in rows),
+        "per": "times and bound: one push, summed over its batch norms (host_ms: the wrapper "
+               "called directly; op_ms / op_host_ms: through the efficientlo:: operator; "
+               "plain_ms: bn_relu_plain, CUDA events; library_ms: the same eager chain's "
+               "device time in a CUDA graph); launches: the stream's and the train path's "
+               "counted runs",
+        "paths": {"stream": {**summed(rows, launches["stream"]),
+                             "launches_per_push": len(rows)},
+                  "train": {"launches": launches["train"], "launches_per_step": 0}},
+        "card": card,
+    }
 
 
 def train_batches(sensor, batch_size):
@@ -1806,7 +1912,8 @@ def host_stream_phase(ws, cfg, model, scans, device_poses, dev):
     ws.reset_launches()
     poses, times, per_push = run_stream(stream, ws, scans)
     launches = dict(ws.launches)
-    expected = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES)}
+    expected = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES),
+                "bn_relu": BN_RELU_SITES}
     for i, counts in enumerate(per_push):
         check(counts == expected, f"host-projected push {i} launched {counts}, expected {expected}")
     for q, t in poses:
@@ -2001,7 +2108,9 @@ def bf16_stream(ws, nbr, cfg16, scans, f32_poses, dev):
     ws.reset_launches()
     poses, times, per_push = run_stream(stream, ws, scans)
     launches = dict(ws.launches)
-    expected = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES)}
+    # bfloat16 batch norms keep the eager chain
+    expected = {"window_select": len(SELECT_SITES), "select_and_group": len(GROUP_SITES),
+                "bn_relu": 0}
     for i, counts in enumerate(per_push):
         check(counts == expected, f"bf16 push {i} launched {counts}, expected {expected}")
     for q, t in poses:
@@ -2016,7 +2125,7 @@ def bf16_stream(ws, nbr, cfg16, scans, f32_poses, dev):
     with recording(ws) as calls:
         stream.push(scans[1])
     counts = {k: len(v) for k, v in calls.items()}
-    check(counts == expected, f"one bf16 push made {counts} kernel calls")
+    check(counts == {k: expected[k] for k in counts}, f"one bf16 push made {counts} kernel calls")
     for args in calls["window_select"]:
         check_select_site(ws, nbr, args)
     errs = [check_group_site(ws, nbr, args)[1] for args in calls["select_and_group"]]
@@ -2951,8 +3060,11 @@ def main():
     # the native library loads; phase 9 runs the host-projected paths
     tcfg = TrainConfig(host_projection=False)
     batches = train_batches(cfg.sensor, tcfg.batch_size)
+    before = launch_counts()["bn_relu"]
     train_sites = train_kernel_phase(ws, nbr, cfg, tcfg, batches[0], dev)
     train_launches, train_times = train_phase(ws, nbr, cfg, tcfg, batches, card, dev)
+    train_bn_relu = launch_counts()["bn_relu"] - before
+    check(train_bn_relu == 0, f"the train path launched bn_relu {train_bn_relu} times")
 
     # ---- 7.-12. trainer and sequence eval, SLAM, host projection, bf16 and
     # serving, parallelism, kernels line ------------------------------------------
@@ -2970,8 +3082,12 @@ def main():
                                           batches, train_times, trained, tree, work, card, dev))
         counted.update(parallel_phase(ws, nbr, cfg, tcfg, scans, batches, stream_calls, card, dev,
                                       work))
-    emit(kernels_line({"stream": (stream_sites, stream_launches),
-                       "train": (train_sites, train_launches)}, counted, card))
+    line = kernels_line({"stream": (stream_sites, stream_launches),
+                         "train": (train_sites, train_launches)}, counted, card)
+    line["kernels"].append(bn_relu_entry(
+        stream_sites["bn_relu"], {"stream": stream_launches["bn_relu"], "train": train_bn_relu},
+        card))
+    emit(line)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

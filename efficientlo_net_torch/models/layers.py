@@ -36,6 +36,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import bn_relu as bnr
 from ..ops import neighbors as nbr
 from ..parallel.distributed import all_reduce_sum
 
@@ -108,8 +109,14 @@ class ScheduledBatchNorm(nn.Module):
                 self.var.copy_(momentum * self.var + (1.0 - momentum) * var)
         else:
             mean, var = self.mean, self.var
-        inv = torch.rsqrt(var + self.epsilon)
-        return ((x - mean) * inv * self.scale + self.bias).to(in_dtype)
+        return bnr.normalize(x, mean, var, self.scale, self.bias, self.epsilon).to(in_dtype)
+
+    def forward_relu(self, x, momentum=0.99):
+        """``relu(self(x, momentum))``: one ``efficientlo::bn_relu`` pass where
+        ``_fuses_bn_relu`` holds, bit-identical to the chain, else the chain."""
+        if _fuses_bn_relu(self, x):
+            return bnr.bn_relu_op(x, self.mean, self.var, self.scale, self.bias, self.epsilon)
+        return torch.relu(self(x, momentum))
 
 
 def _dense(in_features: int, out_features: int) -> nn.Linear:
@@ -119,6 +126,15 @@ def _dense(in_features: int, out_features: int) -> nn.Linear:
     nn.init.xavier_uniform_(dense.weight)
     nn.init.zeros_(dense.bias)
     return dense
+
+
+def _fuses_bn_relu(bn: ScheduledBatchNorm, x: torch.Tensor) -> bool:
+    """Whether ``bn`` and the ReLU after it run as one ``efficientlo::bn_relu``
+    pass over ``x``: eval-mode batch norm with gradients off on a float32
+    CUDA tensor.  Training, eval with gradients, the CPU and bfloat16 keep
+    the eager chain."""
+    return (not bn.training and not torch.is_grad_enabled() and x.is_cuda
+            and x.dtype == torch.float32)
 
 
 class ConvMLP(nn.Module):
@@ -145,8 +161,8 @@ class ConvMLP(nn.Module):
 
     def forward(self, x, bn_momentum=0.99):
         for i in range(self.depth):
-            x = getattr(self, f"bn_{i}")(self._linear(getattr(self, f"dense_{i}"), x), bn_momentum)
-            x = torch.relu(x)
+            x = getattr(self, f"bn_{i}").forward_relu(
+                self._linear(getattr(self, f"dense_{i}"), x), bn_momentum)
         return x
 
 

@@ -4,7 +4,9 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ctypes.  Libraries are built
 at first use into ``efficientlo_net_torch/_build/`` (git-ignored), named by a
 hash of the source and flags, so an edited source is rebuilt.  ``build``
-starts one ``nvcc`` per source, all at once, and waits for all of them.
+starts one ``nvcc`` per source, all at once, and waits for all of them; the
+first ``load`` builds every missing library of ``SOURCES`` in that one call,
+so a second source adds no ``nvcc`` in series to a checkout's first run.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("window_select.cu",)
+SOURCES = ("window_select.cu", "bn_relu.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -75,8 +77,9 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
 
 
 def load(source: str) -> ctypes.CDLL:
-    """The loaded library of ``source``, built first if needed."""
+    """The loaded library of ``source`` (one of ``SOURCES``), built first,
+    with every other missing library of ``SOURCES``, if needed."""
     if source not in _loaded:
-        path = build([source])[source]
+        path = build()[source]
         _loaded[source] = ctypes.CDLL(str(path))
     return _loaded[source]

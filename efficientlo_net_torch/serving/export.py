@@ -6,11 +6,11 @@ scans, the eval-mode forward) is exported with ``torch.export`` into one
 ``.pt2`` file with the weights inside and static shapes (batch size and point
 count are fixed at export time).
 
-* ``device="cuda"``: the graph calls the ``efficientlo::window_select`` and
-  ``efficientlo::select_and_group`` operators, so it runs the Hopper
-  kernels.  Loading it needs this package's operators registered
-  (``load_odometry`` imports them); the JAX package's TPU artifact needs
-  nothing.
+* ``device="cuda"``: the graph calls the ``efficientlo::window_select``,
+  ``efficientlo::select_and_group`` and ``efficientlo::bn_relu`` operators,
+  so it runs the Hopper kernels.  Loading it needs this package's operators
+  registered (``load_odometry`` imports them); the JAX package's TPU artifact
+  needs nothing.
 * ``device="cpu"``: traced under ``neighbors.plain_selects()``, so the graph
   holds plain PyTorch operations only and loads in bare PyTorch, the
   counterpart of the JAX package's portable artifact.
@@ -90,7 +90,7 @@ def load_odometry(path) -> Tuple[object, callable]:
     """Load an artifact; returns ``(exported, call)`` where ``call(pc1, pc2)
     -> (q, t)`` takes numpy arrays or tensors and runs on the device the
     artifact was exported for."""
-    from ..ops import window_select  # noqa: F401  (registers a card artifact's operators)
+    from ..ops import bn_relu, window_select  # noqa: F401  (register a card artifact's operators)
 
     exported = torch.export.load(path)
     module = exported.module()
